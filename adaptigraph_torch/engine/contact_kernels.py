@@ -242,7 +242,7 @@ def block_sparse_contact_deltas_packed(n: int, rows, cols, rest_dist,
     _launch_device(rows)
     from adaptigraph_torch.kernels import build
 
-    lib = build.load("contact")
+    lib = build.load()
     scal = device_scalars(rows.device, rest_dist, particle_friction,
                            filter_dist)
     delta = torch.empty((n, 3), dtype=_F32, device=rows.device)
@@ -298,7 +298,7 @@ def refine_overlap_blocks_packed(n: int, rows, cols, keep_dist, filter_dist,
     _launch_device(rows)
     from adaptigraph_torch.kernels import build
 
-    lib = build.load("contact")
+    lib = build.load()
     scal = device_scalars(rows.device, keep_dist, filter_dist)
     new_idx = torch.empty_like(block_idx)
     new_cnt = torch.empty_like(block_cnt)

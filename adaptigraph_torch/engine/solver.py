@@ -58,16 +58,16 @@ def _require_block(mode: str):
         raise ValueError(f"unknown contact_mode {mode!r}")
 
 
-def pack_tables_for(particles: ParticleState, spec: SceneSpec):
-    """The frame-constant contact tables for `particles` iff the
-    auto-selected contact mode is 'block'; None otherwise."""
-    n = particles.pos.shape[0]
-    if auto_contact_mode(n) != "block":
-        return None
+def pack_tables_for(particles: ParticleState, spec: SceneSpec,
+                    tile_j: int | None = None):
+    """The frame-constant contact tables of `particles` for the block
+    sweep, at `tile_j` columns (None: auto_tile_j). The one packing rule
+    that xpbd_step and rollout_steps share. Unlike the JAX version it never
+    returns None: `block` is the only ported contact mode."""
     return pack_contact_tables(
         particles.pos, particles.pos, particles.group, particles.inv_mass,
         particles.self_collide, particles.active, spec.rest_pos,
-        tile_j=auto_tile_j(n))
+        tile_j=tile_j or auto_tile_j(particles.pos.shape[0]))
 
 
 def _pad_tile(x, t: int = TILE):
@@ -282,9 +282,7 @@ def xpbd_step(state: SceneState, spec: SceneSpec, substeps: int,
     if packed_tables is not None:
         tables = update_contact_tables(*packed_tables, p0.pos, pos_prev=p0.pos)
     else:
-        tables = pack_contact_tables(
-            p0.pos, p0.pos, p0.group, p0.inv_mass, p0.self_collide,
-            p0.active, spec.rest_pos, tile_j=tj)
+        tables = pack_tables_for(p0, spec, tj)
     block_idx, block_cnt, overflow, keep_dist = frame_block_lists(
         p0, spec, s_vel, tj)
     blocks = refine_overlap_blocks_packed(
@@ -324,9 +322,7 @@ def rollout_steps(state: SceneState, spec: SceneSpec, shape_pos_traj,
     dev = p.pos.device
     n = p.pos.shape[0]
     _require_block(contact_mode or auto_contact_mode(n))
-    tables0 = pack_contact_tables(
-        p.pos, p.pos, p.group, p.inv_mass, p.self_collide, p.active,
-        spec.rest_pos, tile_j=contact_tile_j or auto_tile_j(n))
+    tables0 = pack_tables_for(p, spec, contact_tile_j)
     pos_traj = torch.as_tensor(shape_pos_traj, dtype=_F32, device=dev)
     quat_traj = torch.as_tensor(shape_quat_traj, dtype=_F32, device=dev)
     recs = []

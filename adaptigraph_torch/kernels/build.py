@@ -1,9 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each source `csrc/<name>.cu` has a plain C interface. It is compiled by
-`nvcc` into its own shared library under `_build/` (named by a hash of the
-sources and flags, so a changed source rebuilds) and loaded with `ctypes`.
-Several sources build in parallel, one `nvcc` each. The libraries link
+`csrc/contact.cu` has a plain C interface. It is compiled by `nvcc` into a
+shared library under `_build/` (named by a hash of the sources and flags,
+so a changed source rebuilds) and loaded with `ctypes`. The library links
 against the CUDA runtime only, not against PyTorch, so a build takes
 seconds. Nothing builds when this module is imported.
 """
@@ -19,6 +18,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "contact.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # -fmad=false: no contraction of a * b + c into one rounding, so each kernel
@@ -27,15 +27,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argtypes of each library's C entries; every entry returns a cudaError_t
+# argtypes of the library's C entries; every entry returns a cudaError_t
 SIGNATURES = {
-    "contact": {
-        "ag_block_sparse_contact": (_P,) * 7 + (_I,) * 5 + (_P,),
-        "ag_refine_blocks": (_P,) * 7 + (_I,) * 4 + (_P,),
-    },
+    "ag_block_sparse_contact": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "ag_refine_blocks": (_P,) * 7 + (_I,) * 4 + (_P,),
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_lib: ctypes.CDLL | None = None
 
 
 def find_nvcc() -> str:
@@ -48,69 +46,53 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    if not src.is_file():
-        raise FileNotFoundError(src)
+def _target() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for dep in sorted(CSRC.glob("*.cuh")) + [src]:
+    for dep in sorted(CSRC.glob("*.cuh")) + [SOURCE]:
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"contact-{h.hexdigest()[:16]}.so"
 
 
-def build(names=("contact",), timeout: float = 600.0) -> dict[str, str]:
-    """Compile every named source that has no current library, all at once.
-    Returns {name: compiler output} for the sources compiled now (register
-    and shared-memory use per kernel, from -Xptxas -v). Raises with the
-    compiler's output when a build fails."""
-    todo = [(n, _target(n)) for n in names]
-    todo = [(n, t) for n, t in todo if not t.exists()]
-    if not todo:
-        return {}
+def build(timeout: float = 600.0) -> str | None:
+    """Compile the library unless a current one exists. Returns the
+    compiler's output (register and shared-memory use per kernel, from
+    -Xptxas -v), or None when nothing was compiled. Raises with the
+    compiler's output when the build fails."""
+    target = _target()
+    if target.exists():
+        return None
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name, target in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = {}, []
-    for name, target, tmp, proc in procs:
-        try:
-            out, _ = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-            out += f"\nnvcc timed out after {timeout} s"
-        logs[name] = out
-        if proc.returncode == 0:
-            os.replace(tmp, target)
-        else:
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True, timeout=timeout)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
             os.unlink(tmp)
-            failed.append(name)
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+    return log
 
 
-def load(name: str = "contact") -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in SIGNATURES[name].items():
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(_target()))
+        for fn, argtypes in SIGNATURES.items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
         lib.ag_error_string.argtypes = [ctypes.c_int]
         lib.ag_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
-    return lib
+        _lib = lib
+    return _lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -18,9 +18,8 @@ from adaptigraph_torch.scenes.build import Caps, SceneBuild, build_scene
 N_CAP = 5120
 
 
-def rope_design_point(device=None, lifted: bool = True,
-                      n_cap: int = N_CAP) -> SceneBuild:
-    caps = Caps(n=n_cap, s=0, c=1024, k=640, m=2)
+def rope_design_point(device=None, lifted: bool = True) -> SceneBuild:
+    caps = Caps(n=N_CAP, s=0, c=1024, k=640, m=2)
     shapes = make_shapes([SHAPE_PLANE, SHAPE_BOX],
                          [[0, 0, 0], [0.05, 0.4, 0.8]],
                          [[0, 0, 0], [0, 0.4, 0]],
