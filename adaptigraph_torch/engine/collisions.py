@@ -102,7 +102,10 @@ def shape_contact_deltas(pos_pred, pos_prev, shapes: ShapeSet, shape_pos,
     shape_pos / shape_quat / shape_vel: (M, 3) / (M, 4) / (M, 3) poses and
     velocities at this substep. `margin` is accepted for signature parity
     with the JAX pass, which does not use it either. Returns (delta (N, 3),
-    count (N,)): summed corrections and active contacts per particle."""
+    count (N,)): summed corrections and active contacts per particle.
+    `shape_contact_deltas.calls` counts the calls (the fused stage, K4,
+    replaces them)."""
+    shape_contact_deltas.calls += 1
     sd, n = shape_sdf(pos_pred, shapes.kind, shapes.size, shape_pos,
                       shape_quat, planes=shapes.planes)
     pen = collision_distance - sd  # (M, N); > 0 inside the collision offset
@@ -117,3 +120,6 @@ def shape_contact_deltas(pos_pred, pos_prev, shapes: ShapeSet, shape_pos,
     delta = torch.where(in_contact[..., None], delta_n - rel_t * scale,
                         torch.zeros_like(delta_n))
     return torch.sum(delta, dim=0), torch.sum(in_contact.to(pos_pred.dtype), dim=0)
+
+
+shape_contact_deltas.calls = 0

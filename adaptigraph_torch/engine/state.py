@@ -72,6 +72,20 @@ class ClusterMatmul(NamedTuple):
     a00: torch.Tensor  # (C, 9) static rest covariance (f64-accumulated)
 
 
+class ClusterSegments(NamedTuple):
+    """Contiguous-segment form of the cluster pass, for scenes whose
+    clusters are disjoint contiguous index ranges in build order (granular:
+    particles are appended granule by granule). Segment reductions become
+    a cumsum and a (C+1)-row boundary gather, and the broadcast back an
+    (N,)-row gather of a small (C+1, 14) table."""
+
+    starts: torch.Tensor  # (C+1,) int32 cumulative boundaries
+    cid: torch.Tensor  # (N,) int32 cluster id per particle, C = "none"
+    com0: torch.Tensor  # (C, 3) rest COM per cluster
+    count: torch.Tensor  # (C,) f32 member counts (>= 1)
+    a00: torch.Tensor  # (C, 9) static rest covariance (f64-accumulated)
+
+
 class ShapeSet(NamedTuple):
     """Kinematic collision shapes (table, pusher, floor)."""
 
@@ -147,6 +161,7 @@ class SceneSpec(NamedTuple):
     params: SolverParams
     cluster_inc: ClusterIncidence | None = None
     cluster_mm: ClusterMatmul | None = None
+    cluster_seg: ClusterSegments | None = None
 
 
 class SceneState(NamedTuple):
@@ -344,6 +359,61 @@ def build_cluster_matmul(clusters: ClusterSet, rest_pos,
                          a00=_t(a00, device))
 
 
+def build_cluster_segments(clusters: ClusterSet, rest_pos,
+                           n: int) -> ClusterSegments | None:
+    """Host-side detection and table build. None unless the valid clusters
+    are a compact prefix of the rows, each a contiguous ascending range,
+    the ranges disjoint and in order, and the rest offsets consistent with
+    rest_pos (the rule of build_cluster_matmul)."""
+    device = clusters.member.device
+    member = _np(clusters.member)
+    mvalid = _np(clusters.member_valid) & _np(clusters.valid)[:, None]
+    rest = _np(clusters.rest)
+    rest_pos = _np(rest_pos)[:n]
+    c_rows = member.shape[0]
+    starts, com0, cnt, a00 = [], [], [], []
+    cid = np.full((n,), 0, dtype=np.int32)
+    rest64 = rest_pos.astype(np.float64)
+    cursor = 0
+    n_valid = 0
+    for ci in range(c_rows):
+        m = member[ci][mvalid[ci]]
+        if len(m) == 0:
+            continue
+        if ci != n_valid:  # valid clusters must be a compact prefix
+            return None
+        if not (m[0] == cursor
+                and np.array_equal(m, np.arange(m[0], m[0] + len(m)))):
+            return None
+        co64 = rest64[m].mean(axis=0)
+        if not np.allclose(rest_pos[m] - co64.astype(np.float32),
+                           rest[ci][mvalid[ci]], atol=1e-4):
+            return None
+        cen = rest64[m] - co64
+        a00.append(np.einsum("ki,kj->ij", cen, cen).reshape(9)
+                   .astype(np.float32))
+        starts.append(cursor)
+        com0.append(co64)
+        cnt.append(float(len(m)))
+        cid[m] = n_valid
+        n_valid += 1
+        cursor += len(m)
+    if n_valid == 0:
+        return None
+    # pad the per-cluster tables to the cap
+    starts = starts + [cursor] * (c_rows - n_valid + 1)
+    com0 = com0 + [np.zeros(3, np.float64)] * (c_rows - n_valid)
+    cnt = cnt + [1.0] * (c_rows - n_valid)
+    a00 = a00 + [np.zeros(9, np.float32)] * (c_rows - n_valid)
+    cid[cursor:] = c_rows  # padding particles -> the "none" row
+    return ClusterSegments(
+        starts=_t(np.asarray(starts, np.int32), device),
+        cid=_t(cid, device),
+        com0=_t(np.stack(com0).astype(np.float32), device),
+        count=_t(np.asarray(cnt, np.float32), device),
+        a00=_t(np.stack(a00), device))
+
+
 def fold_global_cluster(spec: SceneSpec, particles: ParticleState) -> SceneSpec:
     """Fold the global shape-matching cluster into a free padding row of the
     membership-matrix cluster pass (exact while inv_mass is static, which
@@ -429,7 +499,7 @@ def tree_to_numpy(obj):
     return _np(obj)
 
 
-_SPEC_FIELDS_NOT_PORTED = ("spring_inc", "cluster_seg", "offset_springs")
+_SPEC_FIELDS_NOT_PORTED = ("spring_inc", "offset_springs")
 
 
 def _leaf(a, device):
@@ -449,9 +519,9 @@ def _named(cls, d: dict, device):
 def scene_from_numpy(state: dict, spec: dict, device=None):
     """(SceneState, SceneSpec) on `device` from a JAX scene flattened by
     field name to numpy arrays: each NamedTuple becomes a dict of its
-    fields, each leaf a numpy array (or None). Spec parts this slice does
-    not port yet (spring incidence, contiguous cluster segments, offset
-    springs) raise NotImplementedError when present."""
+    fields, each leaf a numpy array (or None). Spec parts the port does
+    not cover yet (spring incidence, offset springs) raise
+    NotImplementedError when present."""
     from adaptigraph_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -472,6 +542,8 @@ def scene_from_numpy(state: dict, spec: dict, device=None):
                      _named(ClusterIncidence, spec["cluster_inc"], device)),
         cluster_mm=(None if spec.get("cluster_mm") is None else
                     _named(ClusterMatmul, spec["cluster_mm"], device)),
+        cluster_seg=(None if spec.get("cluster_seg") is None else
+                     _named(ClusterSegments, spec["cluster_seg"], device)),
     )
     out_state = SceneState(
         particles=_named(ParticleState, state["particles"], device),

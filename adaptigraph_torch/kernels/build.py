@@ -30,6 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of the library's C entries; every entry returns a cudaError_t
 SIGNATURES = {
     "ag_block_sparse_contact": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "ag_block_sparse_contact_shapes": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "ag_dense_contact": (_P,) * 5 + (_I,) * 2 + (_P,),
     "ag_refine_blocks": (_P,) * 7 + (_I,) * 4 + (_P,),
 }
 

@@ -1,10 +1,14 @@
 """Where the time of a simulator frame goes, on one GPU.
 
-    python -m adaptigraph_torch.tools.profile_frame [--frames 5] [--trace PATH]
+    python -m adaptigraph_torch.tools.profile_frame [--scene rope]
+        [--frames 5] [--start 90] [--trace PATH]
 
-Drives rollout_steps on the rope design point (scenes.design_point, rope
-lifted so it moves) and profiles a few frames with torch.profiler after a
-warm-up. Prints one JSON line: wall ms per frame, device busy ms per frame
+Drives rollout_steps on a design point of scenes.design_point (`rope`: the
+rope lifted so it moves, the pusher's 200-frame sweep; `granular`: the 27k
+granular point with the shapes fused into the sweep, the board's sweep;
+`granular_dense`: the dense band, the same sweep) and profiles
+a few frames with torch.profiler after running the frames before them.
+Prints one JSON line: wall ms per frame, device busy ms per frame
 (the sum of kernel times; one stream, so kernels do not overlap), the
 device idle share, kernel launches per frame, and the kernels with the most
 device time. Optionally writes a Chrome trace. Needs a CUDA device.
@@ -20,7 +24,21 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from adaptigraph_torch.engine.solver import rollout_steps
-from adaptigraph_torch.scenes.design_point import pusher_sweep, rope_design_point
+from adaptigraph_torch.scenes import design_point as dp
+
+
+def _scene(name: str, dev, frames: int):
+    """(build, shape trajectory, rollout keywords) of a design point."""
+    if name == "rope":
+        b = dp.rope_design_point(dev)
+        return b, dp.pusher_sweep(b, max(200, frames)), {}
+    if name == "granular":
+        b = dp.granular_scene(device=dev)
+        return b, dp.board_sweep(b, frames), dict(
+            rest_filter=False,
+            n_shapes_active=int(b.state.shapes.kind.shape[0]))
+    b = dp.granular_dense_point(dev)
+    return b, dp.board_sweep(b, frames), {}
 
 
 def _device_us(evt):
@@ -33,25 +51,27 @@ def _device_us(evt):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", default="rope",
+                    choices=("rope", "granular", "granular_dense"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--start", type=int, default=90,
-                    help="first profiled frame of the 200-frame sweep")
+                    help="first profiled frame of the sweep")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
     dev = torch.device("cuda")
-    b = rope_design_point(dev)
-    pos_traj, quat_traj = pusher_sweep(b, 200)
+    b, (pos_traj, quat_traj), kw = _scene(args.scene, dev,
+                                          args.start + args.frames)
     st, _ = rollout_steps(b.state, b.spec, pos_traj[:args.start],
                           quat_traj[:args.start], b.substeps, b.iterations,
-                          record=False)
+                          record=False, **kw)
     sl = slice(args.start, args.start + args.frames)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rollout_steps(st, b.spec, pos_traj[sl], quat_traj[sl], b.substeps,
-                      b.iterations, record=False)
+                      b.iterations, record=False, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = []
@@ -63,7 +83,8 @@ def main(argv=None):
     busy_us = sum(k[0] for k in kernels)
     f = args.frames
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "frames": f,
+        "device": torch.cuda.get_device_name(0), "scene": args.scene,
+        "frames": f,
         "first_frame": args.start, "wall_ms_per_frame": 1e3 * wall / f,
         "device_busy_ms_per_frame": busy_us / 1e3 / f,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

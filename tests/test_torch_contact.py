@@ -1,12 +1,13 @@
-"""Port parity: the block contact plumbing and the plain versions of the two
-contact kernels (K1 block sweep, K2 block refinement) against the JAX
-package, whose Pallas kernels run in interpret mode here as
-tests/test_pallas_kernels.py runs them.
+"""Port parity: the contact plumbing and the plain versions of the four
+contact kernels (K1 block sweep, K2 block refinement, K3 dense sweep, K4
+the shape stage fused into K1) against the JAX package, whose Pallas
+kernels run in interpret mode here as tests/test_pallas_kernels.py runs
+them.
 
 Tolerances: table packing, tile culling and the refined block lists are
 exact (integer and copied data, and the same float32 detection math);
 contact counts are exact; deltas agree within atol 2e-5, the tolerance
-tests/test_pallas_kernels.py holds the Pallas sweep to (the sums run in
+tests/test_pallas_kernels.py holds the Pallas sweeps to (the sums run in
 another order). The CUDA kernels are held to these plain versions on the
 card by chip_smoke.py."""
 
@@ -182,19 +183,206 @@ def test_refinement_is_lossless_on_the_port(n, spacing, tile_j):
 
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions and count no
-    launch; a device that is neither CPU nor CUDA is refused."""
+    launch; a device that is neither CPU nor CUDA is refused, and so are
+    inputs the kernels do not take."""
     s = _chain()
     _, ta = _both(s)
     _, (bidx, bcnt, _) = _blocks(s, 128)
     k1 = tck.block_sparse_contact_deltas_packed
     k2 = tck.refine_overlap_blocks_packed
-    before = (k1.launches, k2.launches)
+    k3 = tck.dense_contact_deltas_packed
+    before = (k1.launches, k1.fused_launches, k2.launches, k3.launches)
     rows, cols = tck.pack_contact_tables(*ta)
+    shp = torch.zeros((1, 16))  # one plane at the origin
+    shp[0, 0], shp[0, 1], shp[0, 11] = 2.0, 1.0, 1.0
     k1(512, rows, cols, _f32(0.04), _f32(0.25), _f32(0.0), bidx, bcnt)
+    k1(512, rows, cols, _f32(0.04), _f32(0.25), _f32(0.0), bidx, bcnt,
+       shp=shp, shape_params=(0.03, 0.0, 1.0, 1.0 / 720))
     k2(512, rows, cols, _f32(0.06), _f32(0.0), bidx, bcnt)
-    assert (k1.launches, k2.launches) == before
+    k3(512, rows, cols, _f32(0.04), _f32(0.25), _f32(0.0))
+    assert (k1.launches, k1.fused_launches, k2.launches,
+            k3.launches) == before
     meta = [t.to("meta") for t in (rows, cols, bidx, bcnt)]
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         k1(512, meta[0], meta[1], 0.04, 0.25, 0.0, meta[2], meta[3])
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        k3(512, meta[0], meta[1], 0.04, 0.25, 0.0)
     with pytest.raises(TypeError):
         k1(512, rows, cols, 0.04, 0.25, 0.0, bidx.long(), bcnt)
+    with pytest.raises(ValueError, match="shape_params"):
+        k1(512, rows, cols, 0.04, 0.25, 0.0, bidx, bcnt, shp=shp)
+    with pytest.raises(ValueError, match="shared-memory"):
+        k1(512, rows, cols, 0.04, 0.25, 0.0, bidx, bcnt,
+           shp=torch.zeros((8, 16)), planes2d=torch.zeros((8 * 256, 4)),
+           shape_params=(0.03, 0.0, 1.0, 1.0 / 720))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k3(512, rows[:100], cols[:, :100], 0.04, 0.25, 0.0)
+
+
+def _dense_inputs():
+    """The inputs of tests/test_pallas_kernels.py's dense test: 200 random
+    particles, 8 groups, half of them self-colliding."""
+    rng = np.random.RandomState(0)
+    n = 200
+    pos = rng.rand(n, 3).astype(np.float32) * 0.6
+    return dict(pos=pos, prev=pos - rng.randn(n, 3).astype(np.float32) * 0.002,
+                group=rng.randint(0, 8, n).astype(np.int32),
+                inv_mass=(rng.rand(n) + 0.5).astype(np.float32),
+                sc=rng.rand(n) > 0.5, active=np.ones(n, bool),
+                rest=rng.rand(n, 3).astype(np.float32) * 0.6,
+                rest_dist=0.08, friction=0.25, filter_dist=0.05)
+
+
+def _granular_frame():
+    """A granular frame: the dense band's scene (RandomState(3), granules
+    in groups of their own, no self-collision) at a 1,024 cap: a row of
+    granules along z about 0.086 apart, each moved 0.07 times its index
+    back along z so that neighbours come within the contact distance,
+    with a jitter of the substep-start positions."""
+    from adaptigraph_torch.scenes.build import Caps
+    from adaptigraph_torch.scenes.build import build_scene
+
+    b = build_scene("granular", np.random.RandomState(3),
+                    caps=Caps(n=1024, s=0, c=64, k=1024, m=8), device="cpu")
+    p = b.state.particles
+    pos = p.pos.numpy().copy()
+    pos[:, 2] -= 0.07 * np.maximum(p.group.numpy(), 0)
+    rng = np.random.RandomState(7)
+    prm = b.spec.params
+    return dict(pos=pos, prev=pos - rng.randn(*pos.shape).astype(np.float32)
+                * 2e-3, group=p.group.numpy(), inv_mass=p.inv_mass.numpy(),
+                sc=p.self_collide.numpy(), active=p.active.numpy(),
+                rest=b.spec.rest_pos.numpy(),
+                rest_dist=float(prm.solid_rest_distance),
+                friction=float(prm.particle_friction),
+                filter_dist=float(prm.collide_filter_dist))
+
+
+_DENSE = {"pallas_test": _dense_inputs, "granular": _granular_frame,
+          **_SCENES}
+
+
+@pytest.mark.parametrize("scene", sorted(_DENSE))
+def test_dense_sweep_plain_matches_pallas(scene):
+    """K3's plain version against the JAX dense sweep: counts exact,
+    deltas to 2e-5."""
+    s = _DENSE[scene]()
+    ja, ta = _both(s)
+    scal = (s["rest_dist"], s["friction"], s["filter_dist"])
+    jd, jc = jpk.dense_contact_deltas(*ja, *(jnp.float32(v) for v in scal),
+                                      interpret=True)
+    td, tc = tck.dense_contact_deltas(*ta, *(_f32(v) for v in scal))
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    assert tc.sum() > 0
+    np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=2e-5)
+
+
+def test_dense_sweep_equals_block_sweep_over_every_block():
+    """K3 is K1 over a list of every col block with the rest filter on:
+    the plain versions agree to rounding on the same tables."""
+    s = _cloud()
+    _, ta = _both(s)
+    rows, cols = tck.pack_contact_tables(*ta)
+    nb = cols.shape[1] // tck.TILE
+    idx = torch.arange(nb, dtype=torch.int32).repeat(nb, 1)
+    cnt = torch.full((nb,), nb, dtype=torch.int32)
+    scal = [_f32(v) for v in (s["rest_dist"], s["friction"],
+                              s["filter_dist"])]
+    n = len(s["pos"])
+    d1, c1 = tck.block_sparse_contact_deltas_packed(n, rows, cols, *scal, idx,
+                                                    cnt)
+    d3, c3 = tck.dense_contact_deltas_packed(n, rows, cols, *scal)
+    assert torch.equal(c1, c3) and c3.sum() > 0
+    torch.testing.assert_close(d1, d3, rtol=0, atol=1e-6)
+
+
+def _shape_scene():
+    """tests/test_pallas_kernels.py's fused-stage scene: 256 particles in
+    groups of 16 (no self-collision), a floor plane, a box, a capsule and
+    a convex tetrahedron (one padding slot), random shape velocities."""
+    from adaptigraph_tpu.engine import state as jstate
+
+    rng = np.random.RandomState(3)
+    n = 256
+    pos = (rng.rand(n, 3).astype(np.float32) * 1.2
+           - np.array([0.6, 0.0, 0.6], np.float32))
+    tetra = np.array([[1, 0, 0, 0.2], [0, 1, 0, 0.2], [0, 0, 1, 0.2],
+                      [-0.577, -0.577, -0.577, 0.1]], np.float32)
+    shapes = jstate.make_shapes(
+        [jstate.SHAPE_PLANE, jstate.SHAPE_BOX, jstate.SHAPE_CAPSULE,
+         jstate.SHAPE_CONVEX],
+        [[0, 0, 0], [0.3, 0.2, 0.3], [0.1, 0.3, 0], [0, 0, 0]],
+        [[0, 0, 0], [0.2, 0.15, 0.0], [-0.3, 0.2, 0.1], [0.1, 0.1, -0.2]],
+        [[0, 0, 0, 1], [0.1, 0.2, 0.0, 0.97], [0, 0, 0.38, 0.92],
+         [0.2, 0, 0.1, 0.97]],
+        m_max=5, planes=[None, None, None, tetra])
+    s = dict(pos=pos, prev=pos - rng.randn(n, 3).astype(np.float32) * 0.01,
+             group=(np.arange(n) // 16).astype(np.int32),
+             inv_mass=np.ones(n, np.float32), sc=np.zeros(n, bool),
+             active=np.ones(n, bool), rest=rng.rand(n, 3).astype(np.float32),
+             rest_dist=0.05, friction=0.25, filter_dist=0.0)
+    a = 4  # active shape slots
+    s_vel = rng.randn(5, 3).astype(np.float32) * 0.05
+    shp = np.concatenate([
+        np.asarray(shapes.kind)[:a, None].astype(np.float32),
+        np.asarray(shapes.valid)[:a, None].astype(np.float32),
+        np.asarray(shapes.size)[:a], np.asarray(shapes.pos)[:a],
+        np.asarray(shapes.quat)[:a], s_vel[:a], np.zeros((a, 1), np.float32)],
+        axis=1)
+    planes2d = np.array(shapes.planes)[:a].reshape(-1, 4)
+    return s, shp, planes2d, (0.04, 0.0, 0.3, 1.0 / 60)
+
+
+@pytest.mark.parametrize("rest_filter", [True, False])
+@pytest.mark.parametrize("tile_j", [128, 256])
+def test_fused_shape_stage_plain_matches_pallas(rest_filter, tile_j):
+    """The K1 wrapper with shape tables (K4's CPU form: the plain sweep
+    plus shape_stage_plain) against the JAX fused K1 on the four-kind
+    shape set: counts exact, deltas to 2e-5; every kind has contacts."""
+    s, shp, planes2d, sp = _shape_scene()
+    ja, ta = _both(s)
+    (jidx, jcnt, _), (tidx, tcnt, _) = _blocks(s, tile_j)
+    jr, jc = jpk.pack_contact_tables(*ja, tile_j=tile_j)
+    tr, tc = tck.pack_contact_tables(*ta, tile_j=tile_j)
+    scal = (s["rest_dist"], s["friction"], s["filter_dist"])
+    n = len(s["pos"])
+    jd, jn = jpk.block_sparse_contact_deltas_packed(
+        n, jr, jc, *scal, jidx, jcnt, interpret=True, rest_filter=rest_filter,
+        tile_j=tile_j, shp=jnp.asarray(shp), planes2d=jnp.asarray(planes2d),
+        shape_params=sp)
+    td, tn = tck.block_sparse_contact_deltas_packed(
+        n, tr, tc, *scal, tidx, tcnt, rest_filter=rest_filter, tile_j=tile_j,
+        shp=torch.as_tensor(shp), planes2d=torch.as_tensor(planes2d),
+        shape_params=sp)
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+    np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=2e-5)
+    for k in range(shp.shape[0]):  # each kind alone meets particles
+        _, ck = tck.shape_stage_plain(tr[:n, 0:3], tr[:n, 3:6],
+                                      torch.as_tensor(shp[k:k + 1]),
+                                      torch.as_tensor(planes2d[4 * k:4 * k + 4]),
+                                      *sp)
+        assert ck.sum() > 0, k
+
+
+def test_shape_stage_plain_matches_the_unfused_pass():
+    """shape_stage_plain (after _shape_stage's math) against the port's
+    unfused pass collisions.shape_contact_deltas (after collisions.py's):
+    the two round differently, so counts exact and deltas to 2e-5, as
+    tests/test_pallas_kernels.py holds the two JAX forms."""
+    from adaptigraph_torch.engine.collisions import shape_contact_deltas
+    from adaptigraph_torch.engine.state import make_shapes
+
+    s, shp, planes2d, (cd, margin, dyn, dt) = _shape_scene()
+    kinds = shp[:, 0].astype(np.int32)
+    quat = shp[:, 8:12]
+    shapes = make_shapes(kinds, shp[:, 2:5], shp[:, 5:8], quat,
+                         planes=[None, None, None, planes2d[12:16]])
+    pos, prev = torch.as_tensor(s["pos"]), torch.as_tensor(s["prev"])
+    d0, c0 = shape_contact_deltas(
+        pos, prev, shapes, shapes.pos, shapes.quat, torch.as_tensor(shp[:, 12:15]),
+        _f32(cd), _f32(margin), _f32(dyn), _f32(dt))
+    d1, c1 = tck.shape_stage_plain(pos, prev, torch.as_tensor(shp),
+                                   torch.as_tensor(planes2d), cd, margin, dyn,
+                                   dt)
+    assert torch.equal(c0, c1) and c1.sum() > 0
+    torch.testing.assert_close(d0, d1, rtol=0, atol=2e-5)

@@ -150,11 +150,31 @@ def test_global_cluster_pass_matches_jax(stiffness):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0, atol=1e-5)
 
 
-def test_unported_contact_modes_raise(rope):
+def test_unported_contact_modes_raise(rope, monkeypatch):
+    """The sparse mode still raises. The dense mode is ported: at 512
+    particles the auto mode picks it, sweeps with K3 on every solver
+    iteration and reaches neither block kernel."""
+    from adaptigraph_torch.engine import solver as tsol
+
     b, pos_traj, quat_traj = rope
     ts, tspec = _port(b.state, b.spec)
-    with pytest.raises(NotImplementedError, match="K3"):
-        xpbd_step(ts, tspec, 2, 4)  # 512 particles: auto picks 'dense'
+    assert tsol.auto_contact_mode(512) == "dense"
+    calls = []
+    k3 = tsol.dense_contact_deltas_packed
+
+    def counted(*a, **k):
+        calls.append(1)
+        return k3(*a, **k)
+
+    def refused(*a, **k):
+        raise AssertionError("a block kernel was reached in dense mode")
+
+    monkeypatch.setattr(tsol, "dense_contact_deltas_packed", counted)
+    monkeypatch.setattr(tsol, "block_sparse_contact_deltas_packed", refused)
+    monkeypatch.setattr(tsol, "refine_overlap_blocks_packed", refused)
+    out = xpbd_step(ts, tspec, 2, 4)
+    assert len(calls) == 2 * 4
+    assert bool(torch.isfinite(out.particles.pos).all())
     with pytest.raises(NotImplementedError, match="item 15"):
         rollout_steps(ts, tspec, pos_traj, quat_traj, 2, 4,
                       contact_mode="sparse")
