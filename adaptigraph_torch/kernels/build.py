@@ -33,7 +33,11 @@ SIGNATURES = {
     "ag_block_sparse_contact_shapes": (_P,) * 9 + (_I,) * 7 + (_P,),
     "ag_dense_contact": (_P,) * 5 + (_I,) * 2 + (_P,),
     "ag_refine_blocks": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "ag_contact_geometry": (_I,) * 3 + (_P,),
 }
+
+# ag_contact_geometry's selector of the kernel whose launch it describes
+_GEOMETRY_IDS = {"k1": 1, "k2": 2, "k3": 3}
 
 _lib: ctypes.CDLL | None = None
 
@@ -95,6 +99,17 @@ def load() -> ctypes.CDLL:
         lib.ag_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def launch_geometry(lib: ctypes.CDLL, kernel: str, n_pad: int,
+                    maxb: int = 0) -> dict:
+    """The launch geometry the library gives kernel "k1", "k2" or "k3" at
+    these shapes: CTAs, cluster size (row-tile ranks), lanes per row,
+    threads per CTA."""
+    out = (ctypes.c_int * 4)()
+    check(lib, lib.ag_contact_geometry(_GEOMETRY_IDS[kernel], n_pad, maxb,
+                                       out), "ag_contact_geometry")
+    return dict(zip(("ctas", "cluster", "lanes", "threads"), out))
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -49,6 +49,35 @@ def _device_us(evt):
     return 0.0
 
 
+def profiled(fn, frames: int) -> dict:
+    """Run fn (which runs `frames` frames) under torch.profiler: wall ms
+    and device busy ms a frame (the sum of kernel times; one stream, so
+    kernels do not overlap), the idle share, kernel launches a frame, the
+    kernels by device time, and the profile itself."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels.append((us, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    return {"wall_ms_per_frame": 1e3 * wall / frames,
+            "device_busy_ms_per_frame": busy_us / 1e3 / frames,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches_per_frame": sum(k[1] for k in kernels) / frames,
+            "top_kernels": [{"name": k[2][:90],
+                             "ms_per_frame": k[0] / 1e3 / frames,
+                             "launches_per_frame": k[1] / frames}
+                            for k in kernels[:12]],
+            "profile": prof}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="rope",
@@ -67,31 +96,14 @@ def main(argv=None):
                           quat_traj[:args.start], b.substeps, b.iterations,
                           record=False, **kw)
     sl = slice(args.start, args.start + args.frames)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout_steps(st, b.spec, pos_traj[sl], quat_traj[sl], b.substeps,
-                      b.iterations, record=False, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = []
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            kernels.append((us, evt.count, evt.key))
-    kernels.sort(reverse=True)
-    busy_us = sum(k[0] for k in kernels)
-    f = args.frames
+    res = profiled(lambda: rollout_steps(
+        st, b.spec, pos_traj[sl], quat_traj[sl], b.substeps, b.iterations,
+        record=False, **kw), args.frames)
+    prof = res.pop("profile")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "scene": args.scene,
-        "frames": f,
-        "first_frame": args.start, "wall_ms_per_frame": 1e3 * wall / f,
-        "device_busy_ms_per_frame": busy_us / 1e3 / f,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "kernel_launches_per_frame": sum(k[1] for k in kernels) / f,
-        "top_kernels": [{"name": k[2][:90], "ms_per_frame": k[0] / 1e3 / f,
-                         "launches_per_frame": k[1] / f}
-                        for k in kernels[:12]]}), flush=True)
+        "frames": args.frames, "first_frame": args.start, **res}),
+        flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

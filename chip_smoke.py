@@ -9,8 +9,10 @@ box pusher sweeping through the rope; K1 and K2), the granular design
 point (26,982 particles in a 32,768 cap, 12 substeps x 6 iterations, the
 board pushing the pile, shapes fused into the sweep; K1 with K4, and K2)
 and the granular dense band (1,866 particles; K3). It holds each kernel
-against its plain PyTorch version and frames on the card against frames on
-the CPU. Each phase prints one JSON line. The last lines are the kernel
+against its plain PyTorch version (and K1 over full lists against K3),
+checks that two launches of each contact sweep on the same inputs give the
+same bits, and holds frames on the card against frames on the CPU. Each
+phase prints one JSON line. The last lines are the kernel
 table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
@@ -102,6 +104,13 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def repeats(fn):
+    """Whether two launches of fn on the same inputs give the same bits
+    (the sweeps add their sums in a fixed order, with no atomics)."""
+    first, second = fn(), fn()
+    return all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def event_ms(fn, reps, warm=3):
@@ -290,6 +299,11 @@ def fused_vs_unfused(a, rest_filter, tile_j):
         *args, shp=a["shp"], planes2d=a["planes2d"],
         shape_params=a["shape_params"], **kw)
     d0, c0 = ck.block_sparse_contact_deltas_packed(*args, **kw)
+    fused_again = repeats(lambda: ck.block_sparse_contact_deltas_packed(
+        *args, shp=a["shp"], planes2d=a["planes2d"],
+        shape_params=a["shape_params"], **kw))
+    unfused_again = repeats(
+        lambda: ck.block_sparse_contact_deltas_packed(*args, **kw))
     pd, pc = ck.block_sparse_contact_plain(*args, **kw)
     ds, cs = ck.shape_stage_plain(a["rows"][:n, 0:3], a["rows"][:n, 3:6],
                                   a["shp"], a["planes2d"], *a["shape_params"])
@@ -308,6 +322,8 @@ def fused_vs_unfused(a, rest_filter, tile_j):
             "particle_contacts": int(pc.sum()),
             "shape_contacts": int(cs.sum()),
             "shape_contacts_by_slot": per_shape,
+            "fused_repeats_bitwise": fused_again,
+            "unfused_repeats_bitwise": unfused_again,
             "finite": bool(torch.isfinite(d1).all())}
 
 
@@ -437,7 +453,9 @@ def granular_phases(dev, lib):
     k1_err = max(c["k1_max_abs_err"] for c in cases)
     ok = (all(c["counts_equal"] and c["max_abs_err"] <= K1_ATOL
               and c["k1_counts_equal"] and c["k1_max_abs_err"] <= K1_ATOL
-              and c["finite"] and c["shape_contacts"] > 0 for c in cases)
+              and c["finite"] and c["shape_contacts"] > 0
+              and c["fused_repeats_bitwise"] and c["unfused_repeats_bitwise"]
+              for c in cases)
           and all(min(c["shape_contacts_by_slot"]) > 0 for c in four)
           and cases[-1]["particle_contacts"] > 0 and k2_case["equal"])
     emit({"phase": "k4_check", "ok": ok, "atol": K1_ATOL, "cases": cases,
@@ -500,19 +518,54 @@ def granular_phases(dev, lib):
         err = float((kd - pd).abs().max())
         case = {"frame": name, "counts_equal": bool(torch.equal(kc, pc)),
                 "max_abs_err": err, "contacts": int(pc.sum()),
+                "repeats_bitwise": repeats(
+                    lambda args=args: ck.dense_contact_deltas_packed(*args)),
                 "finite": bool(torch.isfinite(kd).all())}
         k3_cases.append(case)
         k3_err = max(k3_err, err)
         if k3_best is None or case["contacts"] > k3_best[0]:
             k3_best = (case["contacts"], args)
     ok = (all(c["counts_equal"] and c["max_abs_err"] <= K1_ATOL
-              and c["finite"] for c in k3_cases)
+              and c["finite"] and c["repeats_bitwise"] for c in k3_cases)
           and any(c["contacts"] > 0 for c in k3_cases))
     emit({"phase": "k3_check", "ok": ok, "atol": K1_ATOL, "cases": k3_cases})
     if not ok:
         raise RuntimeError("K3 check failed")
     out["k3_err"] = k3_err
     out["k3_args"] = k3_best[1]
+
+    # K1 over the dense band's frame with the most contacts, every col block
+    # listed for every row tile (rest filter on, tile_j 128), so that every
+    # cluster rank of every tile has slots: against K3 and against the
+    # plain version on the same tables
+    _phase[0] = "k1_full_list"
+    fcols = k3_best[1][2]
+    nbf = fcols.shape[1] // ck.TILE
+    full_idx = torch.arange(nbf, dtype=torch.int32, device=dev).repeat(nbf, 1)
+    full_cnt = torch.full((nbf,), nbf, dtype=torch.int32, device=dev)
+    fargs = (*k3_best[1], full_idx, full_cnt)
+    fd, fc = ck.block_sparse_contact_deltas_packed(*fargs, tile_j=ck.TILE)
+    kd3, kc3 = ck.dense_contact_deltas_packed(*k3_best[1])
+    pdf, pcf = ck.block_sparse_contact_plain(*fargs, tile_j=ck.TILE)
+    geo = build.launch_geometry(lib, "k1", fcols.shape[1], nbf)
+    full = {"phase": "k1_full_list", "row_tiles": nbf, "slots": nbf,
+            "geometry": geo, "contacts": int(pcf.sum()),
+            "counts_equal_k3": bool(torch.equal(fc, kc3)),
+            "max_abs_err_k3": float((fd - kd3).abs().max()),
+            "counts_equal_plain": bool(torch.equal(fc, pcf)),
+            "max_abs_err_plain": float((fd - pdf).abs().max()),
+            "repeats_bitwise": repeats(
+                lambda: ck.block_sparse_contact_deltas_packed(
+                    *fargs, tile_j=ck.TILE))}
+    full["ok"] = (full["counts_equal_k3"] and full["counts_equal_plain"]
+                  and full["max_abs_err_k3"] <= K1_ATOL
+                  and full["max_abs_err_plain"] <= K1_ATOL
+                  and full["repeats_bitwise"] and full["contacts"] > 0
+                  and nbf >= geo["cluster"])
+    emit({**full, "atol": K1_ATOL})
+    if not full["ok"]:
+        raise RuntimeError("K1 over full lists disagrees")
+    out["k1_full_err"] = full["max_abs_err_plain"]
 
     # card against CPU, 3 frames from the same state, on the dense band and
     # on a block-mode granular scene small enough for the CPU (RandomState
@@ -695,6 +748,7 @@ def granular_phases(dev, lib):
         "k1_granular_plain_b": event_ms(
             lambda: ck.block_sparse_contact_plain(*k1_args, **k1_kw), 3),
         "k1_fused_granular": event_ms(lambda: k4_raw(a["cnt"]), 100),
+        "k1_fused_granular_b": event_ms(lambda: k4_raw(a["cnt"]), 100),
         "k2_granular_plain_a": event_ms(
             lambda: ck.refine_blocks_plain(*k2_args, **k1_kw), 3),
         "k2_granular": event_ms(k2_raw, 100),
@@ -730,6 +784,10 @@ def granular_phases(dev, lib):
     out["k3_bound"] = bound(k3_bytes, k3_ops)
     out["k4_bound"] = bound(k4_bytes, k4_ops)
     out["times"] = times
+    out["geometry"] = {
+        "k1_granular": build.launch_geometry(lib, "k1", n_pad, maxb),
+        "k3": build.launch_geometry(lib, "k3", dn_pad),
+        "k2_granular": build.launch_geometry(lib, "k2", n_pad, maxb)}
     out["detail"] = {
         "k3": {"n": dn_, "n_active": d.n_active, "n_pad": dn_pad,
                "pairs": pairs3,
@@ -861,11 +919,15 @@ def main():
             contacts = int(pc.sum())
             k1_err = max(k1_err, err)
             counts_equal = bool(torch.equal(kc, pc))
+            again = repeats(lambda: ck.block_sparse_contact_deltas_packed(
+                a["n"], *args, rest_filter=rf, tile_j=tile_j))
             k1_report.append({"tile_j": tile_j, "rest_filter": rf,
                               "counts_equal": counts_equal,
                               "contacts": contacts, "max_abs_err": err,
+                              "repeats_bitwise": again,
                               "finite": bool(torch.isfinite(kd).all())})
-            if not counts_equal or not err <= K1_ATOL or contacts == 0:
+            if (not counts_equal or not err <= K1_ATOL or contacts == 0
+                    or not again):
                 raise RuntimeError(f"K1 check failed: {k1_report[-1]}")
     emit({"phase": "k1_check", "ok": True, "atol": K1_ATOL,
           "cases": k1_report})
@@ -963,6 +1025,8 @@ def main():
 
     b1, by1 = bound(k1_bytes, k1_ops)
     b2, by2 = bound(k2_bytes, k2_ops)
+    rope_geometry = {"k1": build.launch_geometry(lib, "k1", n_pad, maxb),
+                     "k2": build.launch_geometry(lib, "k2", n_pad, maxb)}
     # emitted with the granular kernels' times after the granular phases
     rope_times = {
         "times_ms": times,
@@ -1068,6 +1132,7 @@ def main():
                 "plain_ms": min(gt[f"{key}_granular_plain_a"],
                                 gt[f"{key}_granular_plain_b"]),
                 "bound_ms": ms, "bound_by": by,
+                "geometry": gran["geometry"][f"{key}_granular"],
                 "timed_at": f"granular design point's last frame, tile_j "
                             f"{gran['detail']['k1_granular']['tile_j']}, "
                             f"rest_filter off"}
@@ -1075,12 +1140,15 @@ def main():
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",
          "launches": total("k1"), "launches_by_path": per_path("k1"),
-         "max_abs_err": max(k1_err, gran["k1_err"]),
+         "max_abs_err": max(k1_err, gran["k1_err"], gran["k1_full_err"]),
          "ms": min(times["k1"], times["k1_b"]),
          "plain_ms": min(times["k1_plain_a"], times["k1_plain_b"]),
          "bound_ms": b1, "bound_by": by1, "library_ms": None,
+         "geometry": rope_geometry["k1"],
          "timed_at": "rope check frame, tile_j 128, rest_filter on",
-         "granular": at_design_point("k1")},
+         "granular": at_design_point("k1"),
+         "fused_granular_ms": min(gt["k1_fused_granular"],
+                                  gt["k1_fused_granular_b"])},
         {"name": "refine_blocks", "route": "cuda", "source": src,
          "replaces": f"{pk}:487",
          "launches": total("k2"), "launches_by_path": per_path("k2"),
@@ -1088,6 +1156,7 @@ def main():
          "ms": min(times["k2"], times["k2_b"]),
          "plain_ms": min(times["k2_plain_a"], times["k2_plain_b"]),
          "bound_ms": b2, "bound_by": by2, "library_ms": None,
+         "geometry": rope_geometry["k2"],
          "timed_at": "rope check frame, tile_j 128, rest_filter on",
          "granular": at_design_point("k2")},
         {"name": "dense_contact", "route": "cuda", "source": src,
@@ -1097,6 +1166,7 @@ def main():
          "ms": min(gt["k3"], gt["k3_b"]),
          "plain_ms": min(gt["k3_plain_a"], gt["k3_plain_b"]),
          "bound_ms": b3, "bound_by": by3, "library_ms": None,
+         "geometry": gran["geometry"]["k3"],
          "timed_at": "dense band frame with the most contacts"},
         {"name": "shape_stage_fused", "route": "cuda", "source": src,
          "replaces": f"{pk}:137",
@@ -1107,6 +1177,7 @@ def main():
          "bound_ms": b4, "bound_by": by4, "library_ms": None,
          "unfused_pass_ms": min(gt["unfused_shape_pass_a"],
                                 gt["unfused_shape_pass_b"]),
+         "geometry": gran["geometry"]["k1_granular"],
          "timed_at": "granular design point's last frame, fused launch "
                      "over empty block lists"},
     ]})

@@ -386,3 +386,175 @@ def test_shape_stage_plain_matches_the_unfused_pass():
                                    dt)
     assert torch.equal(c0, c1) and c1.sum() > 0
     torch.testing.assert_close(d0, d1, rtol=0, atol=2e-5)
+
+
+# --- the summation order of the redesigned sweep kernel (K1, and K3 as K1
+# over full lists), emulated on the CPU
+
+LANES = 4  # the sweep's lanes per row (kLanes in kernels/csrc/contact.cu)
+
+
+def _rank_slots(cnt, rank, split):
+    """The list slots rank `rank` of `split` sweeps in a row tile whose list
+    holds `cnt`: rank, rank + split, ... below cnt, and how many the kernel
+    counts for it."""
+    mine = (cnt - rank + split - 1) // split if rank < cnt else 0
+    return list(range(rank, cnt, split)), mine
+
+
+def _kernel_order_sums(rows, cols, scal, block_idx, block_cnt, tile_j,
+                       rest_filter, split):
+    """Test-only emulation, in float32, of the order in which the sweep
+    kernel adds the pair terms: rank s of a row tile's `split` ranks takes
+    the list slots s, s + split, ...; lane l of a row takes the columns
+    16 t + 4 l + q of each block, in that order; each thread adds its terms
+    to 0 in that order; the lanes of a row combine as (l0 + l1) + (l2 + l3)
+    and the ranks in rank order. Each pair's term is the plain version's
+    (_pair_sums over one column). Returns (delta (n_pad, 3), count)."""
+    tile = tck.TILE
+    nb = cols.shape[1] // tile
+    r = rows.view(nb, tile, 16)
+    acc = torch.zeros((nb, split, LANES, tile, 4))
+    for k in range(int(block_cnt.max())):
+        live = (block_cnt > k)[:, None, None]
+        blk = tck._gather_blocks(cols, block_idx, k, tile_j)
+        for c in range(tile_j):
+            term = tck._pair_sums(r, blk[:, :, c:c + 1], *scal,
+                                  rest_filter).view(nb, tile, 4)
+            acc[:, k % split, (c // 4) % LANES] += torch.where(live, term, 0.0)
+    lanes = (acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])
+    tot = lanes[:, 0]
+    for s in range(1, split):
+        tot = tot + lanes[:, s]
+    tot = tot.reshape(-1, 4)
+    return tot[:, :3], tot[:, 3]
+
+
+# one scene per sweep form: the Pallas test's inputs through K3's form, the
+# chain through K1 at tile_j 128, a granular frame through K1 at 256
+_SPLIT_SCENES = {"dense": _dense_inputs, "block128": _chain,
+                 "block256": _granular_frame}
+
+
+@pytest.mark.parametrize("split", [1, 8])
+@pytest.mark.parametrize("sweep", sorted(_SPLIT_SCENES))
+def test_split_summation_order_matches_plain(sweep, split):
+    """The pair sums added in the sweep kernel's order (strided slots over
+    `split` ranks, 4 lanes a row, lanes then ranks combined in a fixed
+    order) against the plain versions, at the fewest and the most ranks
+    the card uses: counts exact, deltas within 2e-5, the tolerance the card
+    is held to. The order of the kernel itself is held on the card (the
+    smoke's kernel checks, full lists and repeated launches)."""
+    s = _SPLIT_SCENES[sweep]()
+    _, ta = _both(s)
+    n = len(s["pos"])
+    scal = [_f32(v) for v in (s["rest_dist"], s["friction"],
+                              s["filter_dist"])]
+    if sweep == "dense":
+        tile_j, rest_filter = tck.TILE, True
+        rows, cols = tck.pack_contact_tables(*ta)
+        nbj = cols.shape[1] // tile_j
+        idx = torch.arange(nbj, dtype=torch.int32).repeat(nbj, 1)
+        cnt = torch.full((nbj,), nbj, dtype=torch.int32)
+        pd, pc = tck.dense_contact_plain(n, rows, cols, *scal)
+    else:
+        tile_j, rest_filter = int(sweep[5:]), False
+        rows, cols = tck.pack_contact_tables(*ta, tile_j=tile_j)
+        _, (idx, cnt, _) = _blocks(s, tile_j)
+        pd, pc = tck.block_sparse_contact_plain(
+            n, rows, cols, *scal, idx, cnt, rest_filter=rest_filter,
+            tile_j=tile_j)
+    kd, kc = _kernel_order_sums(rows, cols, scal, idx, cnt, tile_j,
+                                rest_filter, split)
+    assert pc.sum() > 0
+    assert torch.equal(kc[:n], pc)
+    torch.testing.assert_close(kd[:n], pd, rtol=0, atol=2e-5)
+    assert torch.equal(kc[n:], torch.zeros_like(kc[n:]))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_strided_slots_cover_every_listed_slot_once(split):
+    """Ranks 0..split-1 taking slots rank, rank + split, ... cover every
+    listed slot of every list length 0..maxb exactly once, and the
+    kernel's count of a rank's slots matches."""
+    for maxb in (1, 3, 8, 16, 40, 64, 128):
+        for cnt in range(maxb + 1):
+            taken = []
+            for rank in range(split):
+                slots, mine = _rank_slots(cnt, rank, split)
+                assert mine == len(slots)
+                taken += slots
+            assert sorted(taken) == list(range(cnt))
+
+
+def test_launch_geometry_reads_the_library():
+    """kernels.build.launch_geometry passes the kernel (1, 2 or 3 for K1,
+    K2, K3) and the shapes to ag_contact_geometry and names the four
+    numbers it returns; a refused shape raises."""
+    from adaptigraph_torch.kernels import build
+
+    class Lib:
+        def ag_contact_geometry(self, kernel, n_pad, maxb, out):
+            if n_pad % 128:
+                return 1
+            split, lanes = {1: (2, 4), 2: (1, 1), 3: (8, 4)}[kernel]
+            out[0], out[1] = n_pad // 128 * split, split
+            out[2], out[3] = lanes, 128 * lanes
+            return 0
+
+        def ag_error_string(self, err):
+            return b"invalid argument"
+
+    assert build.launch_geometry(Lib(), "k3", 2048) == {
+        "ctas": 128, "cluster": 8, "lanes": 4, "threads": 512}
+    assert build.launch_geometry(Lib(), "k1", 5120, 40)["cluster"] == 2
+    assert build.launch_geometry(Lib(), "k2", 5120, 40) == {
+        "ctas": 40, "cluster": 1, "lanes": 1, "threads": 128}
+    with pytest.raises(RuntimeError, match="ag_contact_geometry"):
+        build.launch_geometry(Lib(), "k1", 100, 1)
+    assert "ag_contact_geometry" in build.SIGNATURES
+
+
+def test_kernel_turns_launches_match_the_c_signatures():
+    """tools/kernel_turns.py's raw launches pass each C entry as many
+    arguments as kernels.build.SIGNATURES declares, and write the outputs
+    it compares (checked through a fake library: the tool needs a GPU)."""
+    from adaptigraph_torch.kernels import build
+    from adaptigraph_torch.tools import kernel_turns as kt
+
+    class Lib:
+        calls = []
+
+        def __getattr__(self, fn):
+            def entry(*args):
+                assert len(args) == len(build.SIGNATURES[fn]), fn
+                self.calls.append(fn)
+                return 0
+            return entry
+
+    s = _chain()
+    _, ta = _both(s)
+    rows, cols = tck.pack_contact_tables(*ta)
+    _, (idx, cnt, _) = _blocks(s, tck.TILE)
+    a = dict(n=len(s["pos"]), rows=rows, cols=cols, idx=idx, cnt=cnt,
+             ridx=idx, rcnt=cnt, tile_j=tck.TILE, rf=1, s1=torch.zeros(3),
+             s2=torch.zeros(2))
+    fused = dict(shp=torch.zeros((2, 16)), planes=None, n_shapes=2,
+                 n_planes=0, s4=torch.zeros(7))
+    dense, nb = kt._dense_cases(a["n"], rows, cols, torch.zeros(3), 0)
+    lib = Lib()
+    names = []
+    for name, kernel, make in kt._cases(a, 0, fused) + dense:
+        launch, outs = make(lib)
+        launch()
+        names.append((name, kernel))
+        assert len(outs) == 2
+    assert nb == cols.shape[1] // tck.TILE
+    assert names == [("k1", "k1"), ("k1_fused", "k1"), ("k4_alone", "k1"),
+                     ("k2", "k2"), ("k3", "k3"), ("k1_full_list", "k1")]
+    assert Lib.calls == [
+        "ag_block_sparse_contact", "ag_block_sparse_contact_shapes",
+        "ag_block_sparse_contact_shapes", "ag_refine_blocks",
+        "ag_dense_contact", "ag_block_sparse_contact"]
+    with pytest.raises(SystemExit, match="splits"):
+        kt.main(["--base", "base.cu", "--splits", "3"])
