@@ -42,6 +42,7 @@ BOARD_GAP = 0.05  # the board's face before the pile's near face at frame 0
 
 
 def rope_design_point(device=None, lifted: bool = True) -> SceneBuild:
+    device = resolve_device(device)
     caps = Caps(n=N_CAP, s=0, c=1024, k=640, m=2)
     shapes = make_shapes([SHAPE_PLANE, SHAPE_BOX],
                          [[0, 0, 0], [0.05, 0.4, 0.8]],
@@ -73,7 +74,9 @@ def pusher_sweep(b: SceneBuild, t: int):
 def granular_shapes(device=None, m_max: int = 8):
     """SimEnv's granular shape set without the robot (sim/env.py
     _build_shapes): the floor plane, the workspace table box, the robot's
-    side-table box and the board pusher, parked far above."""
+    side-table box and the board pusher, parked far above. Made on
+    resolve_device(device): CUDA unless a device is given."""
+    device = resolve_device(device)
     rtw = 126.0 / 200
     return make_shapes(
         [SHAPE_PLANE, SHAPE_BOX, SHAPE_BOX, SHAPE_BOX],

@@ -7,19 +7,23 @@ turns, on one GPU.
 
 Builds `--base` and this tree's `kernels/csrc/contact.cu` into two
 libraries, and with --splits this tree's source once more for each
-cluster size S of the sweep (-DAG_SPLIT=S): one nvcc each, all started
-together, with kernels/build.py's flags, under kernels/_build/turns/. On
-the inputs below it launches each kernel through every library, checks
-that its counts (K2: its lists) equal this tree's, and times raw launches
-with CUDA events, the libraries in turns: base, this, this, base, base,
-this, then each S.
+cluster size S (-DAG_SPLIT=S: the sweep's and K2's): one nvcc each, all
+started together, with kernels/build.py's flags, under
+kernels/_build/turns/. On the inputs below it launches each kernel
+through every library, checks that its counts (K2: its lists) equal this
+tree's, and times raw launches with CUDA events, the libraries in turns:
+base, this, this, base, base, this, then each S.
 
 - rope: the rope design point at frame 18 of the pusher's 80-frame sweep
   (the smoke's check frame): K1 at tile_j 128 with the rest filter over
   K2's lists, and K2;
 - granular: the granular design point at frame 36 of the board's sweep:
   K1 at tile_j 256 without the rest filter, unfused and with the shapes
-  fused, K4 alone (the fused launch over empty lists), and K2;
+  fused, K4 alone (the fused launch over empty lists) beside K1 over the
+  same empty lists (`k1_empty`, the launch K4 alone stands on), and K2;
+- granular_landed: the same point at frame 8, its first frame after
+  landing (lists up to 20 blocks a row tile, no granule yet within the
+  keep distance of another): K2;
 - dense: the dense band's built frame with each granule moved 0.07 x its
   index back along z (the smoke's `pressed` frame): K3, and K1 over full
   lists.
@@ -52,7 +56,7 @@ from adaptigraph_torch.tools.profile_frame import profiled
 
 TURNS = ("base", "this", "this", "base", "base", "this")
 ROPE_FRAME, ROPE_SWEEP = 18, 80
-GRANULAR_FRAME, DENSE_FRAMES = 36, 10
+GRANULAR_LANDED, GRANULAR_FRAME, DENSE_FRAMES = 8, 36, 10
 
 
 def _libraries(base: str, splits, out_dir) -> dict:
@@ -109,9 +113,9 @@ def _sweep_inputs(state, spec, tile_j, rest_filter, dev):
 
 
 def _cases(a, stream, fused=None):
-    """(name, kernel, make) for K1 and K2 at inputs `a` (and K1 with K4 and
-    K4 alone when `fused` holds the shape inputs). make(lib) returns
-    (launch, outputs)."""
+    """(name, kernel, make) for K1 and K2 at inputs `a` (and K1 with K4, K4
+    alone and K1 over the same empty lists when `fused` holds the shape
+    inputs). make(lib) returns (launch, outputs)."""
     n, n_pad = a["n"], a["cols"].shape[1]
     maxb = a["ridx"].shape[1]
 
@@ -143,8 +147,10 @@ def _cases(a, stream, fused=None):
 
     out = [("k1", "k1", k1(a["rcnt"], None))]
     if fused is not None:
+        empty = torch.zeros_like(a["rcnt"])
         out += [("k1_fused", "k1", k1(a["rcnt"], fused)),
-                ("k4_alone", "k1", k1(torch.zeros_like(a["rcnt"]), fused))]
+                ("k4_alone", "k1", k1(empty, fused)),
+                ("k1_empty", "k1", k1(empty, None))]
     return out + [("k2", "k2", k2)]
 
 
@@ -259,10 +265,14 @@ def main(argv=None):
         gran.state.particles.self_collide[: gran.n_active].any()),
         n_shapes_active=int(gran.state.shapes.kind.shape[0]))
     gtraj = dp.board_sweep(gran, GRANULAR_FRAME + args.frames + 2)
-    gst, _ = rollout_steps(gran.state, gran.spec,
-                           gtraj[0][:GRANULAR_FRAME],
-                           gtraj[1][:GRANULAR_FRAME], gran.substeps,
-                           gran.iterations, record=False, **gkw)
+    landed, _ = rollout_steps(gran.state, gran.spec,
+                              gtraj[0][:GRANULAR_LANDED],
+                              gtraj[1][:GRANULAR_LANDED], gran.substeps,
+                              gran.iterations, record=False, **gkw)
+    sl = slice(GRANULAR_LANDED, GRANULAR_FRAME)
+    gst, _ = rollout_steps(landed, gran.spec, gtraj[0][sl], gtraj[1][sl],
+                           gran.substeps, gran.iterations, record=False,
+                           **gkw)
     dense = dp.granular_dense_point(dev)
     dtraj = dp.board_sweep(dense, DENSE_FRAMES + args.frames + 2)
     dst, _ = rollout_steps(dense.state, dense.spec, dtraj[0][:DENSE_FRAMES],
@@ -284,10 +294,17 @@ def main(argv=None):
                              prm.shape_collision_margin,
                              prm.dynamic_friction, prm.dt / gran.substeps))
     cases += [("granular", g, c) for c in _cases(g, stream, fused)]
+    gl = _sweep_inputs(landed, gran.spec, g["tile_j"], gkw["rest_filter"],
+                       dev)
+    cases += [("granular_landed", gl, c) for c in _cases(gl, stream)
+              if c[0] == "k2"]
     for point, a, (name, kernel, make) in cases:
-        maxb = (a["idx"] if kernel == "k2" else a["ridx"]).shape[1]
-        emit(_time_case(point, name, kernel, make, libs, order,
-                        a["cols"].shape[1], maxb))
+        idx, cnt = (a["idx"], a["cnt"]) if kernel == "k2" else (a["ridx"],
+                                                                a["rcnt"])
+        emit({**_time_case(point, name, kernel, make, libs, order,
+                           a["cols"].shape[1], idx.shape[1]),
+              "listed_blocks": int(cnt.sum()),
+              "max_blocks_per_tile": int(cnt.max())})
 
     p = dense.state.particles
     pressed = p.pos.clone()

@@ -9,11 +9,13 @@ box pusher sweeping through the rope; K1 and K2), the granular design
 point (26,982 particles in a 32,768 cap, 12 substeps x 6 iterations, the
 board pushing the pile, shapes fused into the sweep; K1 with K4, and K2)
 and the granular dense band (1,866 particles; K3). It holds each kernel
-against its plain PyTorch version (and K1 over full lists against K3),
-checks that two launches of each contact sweep on the same inputs give the
-same bits, and holds frames on the card against frames on the CPU. Each
-phase prints one JSON line. The last lines are the kernel
-table, the card's name and power limit, and the result line
+against its plain PyTorch version (and K1 over full lists against K3;
+K2 also on its edge cases: the design point after landing, a rope
+whose blocks are all pruned, and synthetic lists with empty and full
+rows and stale slots), checks that two launches of each kernel on the
+same inputs give the same bits, and holds frames on the card against
+frames on the CPU. Each phase prints one JSON line. The last lines are
+the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
 once. Imports the standard library, numpy, torch and adaptigraph_torch only.
@@ -40,6 +42,9 @@ T_PUSH = 30  # frames searched for the kernel checks' frame (rope meets floor)
 T_GRANULAR = 36  # granular design point frames (the pile lands at about
 #                  frame 7; the board, at SimEnv's speed, reaches it at
 #                  about frame 6 and is 0.1 past its near face at the end)
+T_LANDED = 8  # the granular design point's first frame after landing:
+#               AABB lists of up to 20 blocks a row tile (as at frame 36),
+#               and no granule yet within the keep distance of another
 T_DENSE = 10  # dense band frames (the pile lands at about frame 7)
 # the granular design point as it must come out of the builder
 DESIGN = {"n_active": 26982, "cap": 32768, "tile_j": 256}
@@ -56,7 +61,9 @@ GRANULAR_MEDIAN_X_NUDGED = 3.0
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
-# the compares) on every listed pair, projection on every contact pair
+# the compares) on every pair the function must test (K1 and K3 every
+# listed pair, K2 the listed pairs within its keep distance: near_pairs),
+# projection on every contact pair
 DETECT_OPS, PROJECT_OPS = 26, 52
 # float32 operations K4's stage spends on one particle against one valid
 # shape, by kind (engine/state.py: 0 box, 1 capsule, 2 plane; a convex
@@ -66,6 +73,30 @@ DETECT_OPS, PROJECT_OPS = 26, 52
 # matrix, the same for every particle, is not counted.
 SHAPE_OPS = {0: 115, 1: 100, 2: 84, 3: 84}
 SHAPE_OPS_PER_PLANE = 12
+# K4's shape sets (make_shapes' arguments, its slot count m_max and the
+# slots the stage takes): tests/test_pallas_kernels.py's four kinds (a
+# plane, a box, a capsule and a convex tetrahedron), and seven slots for
+# the stage's lane split at a count that is not a multiple of its 4 lanes
+# (lanes 0-2 take two shapes, lane 3 one): the four, a second box, a
+# convex cube (6 planes; the tetrahedron's row is padded with 2 empty
+# ones) and an invalid padding slot
+TETRA = [[1, 0, 0, 0.2], [0, 1, 0, 0.2], [0, 0, 1, 0.2],
+         [-0.577, -0.577, -0.577, 0.1]]
+CUBE = [[1, 0, 0, 0.12], [-1, 0, 0, 0.12], [0, 1, 0, 0.12],
+        [0, -1, 0, 0.12], [0, 0, 1, 0.12], [0, 0, -1, 0.12]]
+FOUR_KINDS = dict(
+    kinds=[2, 0, 1, 3],
+    sizes=[[0, 0, 0], [0.3, 0.2, 0.3], [0.1, 0.3, 0], [0, 0, 0]],
+    poses=[[0, 0, 0], [0.2, 0.15, 0.0], [-0.3, 0.2, 0.1], [0.1, 0.1, -0.2]],
+    quats=[[0, 0, 0, 1], [0.1, 0.2, 0.0, 0.97], [0, 0, 0.38, 0.92],
+           [0.2, 0, 0.1, 0.97]],
+    planes=[None, None, None, TETRA], m_max=5, active=4)
+SEVEN_SLOTS = dict(
+    kinds=FOUR_KINDS["kinds"] + [0, 3],
+    sizes=FOUR_KINDS["sizes"] + [[0.2, 0.1, 0.25], [0, 0, 0]],
+    poses=FOUR_KINDS["poses"] + [[-0.3, 0.8, -0.3], [0.35, 0.6, 0.35]],
+    quats=FOUR_KINDS["quats"] + [[0.0, 0.3, 0.1, 0.95], [0.1, 0.1, 0.0, 0.99]],
+    planes=FOUR_KINDS["planes"] + [None, CUBE], m_max=8, active=7)
 
 _phase = ["start"]
 
@@ -176,25 +207,39 @@ def frame_contacts(state, spec):
     return int(c.sum())
 
 
-def first_hit_pairs(rows, cols, keep_dist, filter_dist, block_idx,
-                    block_cnt, tile_j, rest_filter=True):
-    """Pairs K2's detection must evaluate on these inputs: each row thread
-    scans a listed block's columns in order and stops at its first
-    eligible one, so a (row, block) costs the columns up to and including
-    that one, or the whole block when it holds none. Taken from the plain
-    version's detection on the same inputs."""
+def edge_block_lists(nb, nb_j, maxb, seed=0):
+    """Synthetic K2 lists for nb row tiles over nb_j col blocks, numpy int32
+    (block_idx (nb, maxb), block_cnt (nb,)): tile i lists no block when
+    i % 3 == 0, maxb blocks when i % 3 == 1, and a count in between
+    otherwise. Each row holds distinct blocks in a random order, and the
+    slots at or past its count hold stale ones: K2 must carry them to the
+    back in slot order and never read their blocks."""
+    rng = np.random.RandomState(seed)
+    idx = np.argsort(rng.rand(nb, nb_j), axis=1)[:, :maxb].astype(np.int32)
+    mid = rng.randint(1, max(maxb, 2), nb)
+    cnt = np.where(np.arange(nb) % 3 == 0, 0,
+                   np.where(np.arange(nb) % 3 == 1, maxb, mid))
+    return idx, np.minimum(cnt, maxb).astype(np.int32)
+
+
+def near_pairs(rows, cols, keep_dist, block_idx, block_cnt, tile_j):
+    """K2's listed pairs of two active particles closer than keep_dist, by
+    the plain version's distance test: the pairs whose detection no
+    culling by distance can skip, whatever the scan order. Pairs farther
+    apart need no test of their own (K2 culls them by groups), so they are
+    not counted in its bound."""
     from adaptigraph_torch.engine import contact_kernels as ck
 
-    nb = cols.shape[1] // ck.TILE
+    nb = block_idx.shape[0]
     r = rows.view(nb, ck.TILE, 16)
-    keep_dist, filter_dist = (ck._f32(v, rows.device)
-                              for v in (keep_dist, filter_dist))
+    keep = torch.as_tensor(keep_dist, dtype=torch.float32, device=rows.device)
     total = 0
-    for k in range(int(block_cnt.max())):
-        hit = ck._detect(r, ck._gather_blocks(cols, block_idx, k, tile_j),
-                         keep_dist, filter_dist, rest_filter)[-1]
-        scanned = torch.where(hit.any(-1), hit.int().argmax(-1) + 1, tile_j)
-        total += int(scanned[block_cnt > k].sum())
+    for k in range(int(block_cnt.max()) if nb else 0):
+        c = ck._gather_blocks(cols, block_idx, k, tile_j)
+        d2 = sum((r[..., a:a + 1] - c[:, a:a + 1, :]) ** 2 for a in range(3))
+        near = ((d2 < keep * keep) & (d2 > 1e-14) & (r[..., 12:13] > 0.5)
+                & (c[:, 12:13, :] > 0.5))
+        total += int(near[block_cnt > k].sum())
     return total
 
 
@@ -240,10 +285,11 @@ def bound(nbytes, ops):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def four_kind_case(dev, tile_j):
-    """tests/test_pallas_kernels.py's fused-stage inputs (a plane, a box, a
-    capsule and a convex tetrahedron against 256 particles) on the card:
-    (rows, cols, block lists, shp, planes2d, shape_params)."""
+def shape_case(dev, tile_j, shapes=FOUR_KINDS):
+    """tests/test_pallas_kernels.py's fused-stage inputs on the card: its
+    256 particles against a shape set (FOUR_KINDS, its own, or
+    SEVEN_SLOTS): (rows, cols, block lists, shp, planes2d,
+    shape_params)."""
     from adaptigraph_torch.engine import contact_kernels as ck
     from adaptigraph_torch.engine.state import make_shapes
 
@@ -252,17 +298,12 @@ def four_kind_case(dev, tile_j):
     pos = (rng.rand(n, 3).astype(np.float32) * 1.2
            - np.array([0.6, 0.0, 0.6], np.float32))
     prev = pos - rng.randn(n, 3).astype(np.float32) * 0.01
-    tetra = np.array([[1, 0, 0, 0.2], [0, 1, 0, 0.2], [0, 0, 1, 0.2],
-                      [-0.577, -0.577, -0.577, 0.1]], np.float32)
-    sh = make_shapes(
-        [2, 0, 1, 3], [[0, 0, 0], [0.3, 0.2, 0.3], [0.1, 0.3, 0], [0, 0, 0]],
-        [[0, 0, 0], [0.2, 0.15, 0.0], [-0.3, 0.2, 0.1], [0.1, 0.1, -0.2]],
-        [[0, 0, 0, 1], [0.1, 0.2, 0.0, 0.97], [0, 0, 0.38, 0.92],
-         [0.2, 0, 0.1, 0.97]], m_max=5, planes=[None, None, None, tetra],
-        device=dev)
-    s_vel = torch.as_tensor(rng.randn(5, 3).astype(np.float32) * 0.05,
-                            device=dev)
-    a = 4
+    sh = make_shapes(shapes["kinds"], shapes["sizes"], shapes["poses"],
+                     shapes["quats"], m_max=shapes["m_max"],
+                     planes=shapes["planes"], device=dev)
+    s_vel = torch.as_tensor(
+        rng.randn(shapes["m_max"], 3).astype(np.float32) * 0.05, device=dev)
+    a = shapes["active"]
     shp = torch.cat([sh.kind[:a, None].float(), sh.valid[:a, None].float(),
                      sh.size[:a], sh.pos[:a], sh.quat[:a], s_vel[:a],
                      torch.zeros((a, 1), device=dev)], 1).contiguous()
@@ -322,9 +363,37 @@ def fused_vs_unfused(a, rest_filter, tile_j):
             "particle_contacts": int(pc.sum()),
             "shape_contacts": int(cs.sum()),
             "shape_contacts_by_slot": per_shape,
+            "valid_slots": [v > 0.5 for v in a["shp"][:, 1].tolist()],
             "fused_repeats_bitwise": fused_again,
             "unfused_repeats_bitwise": unfused_again,
             "finite": bool(torch.isfinite(d1).all())}
+
+
+def k2_edges(cases):
+    """K2 on the card against refine_blocks_plain, `torch.equal` on lists
+    and counts, and two launches for equal bits, over `cases`: (name, K2's
+    inputs (rows, cols, keep_dist, filter_dist, block_idx, block_cnt),
+    tile_j, rest_filter). Returns the report of each case."""
+    from adaptigraph_torch.engine import contact_kernels as ck
+
+    report = []
+    for name, args, tile_j, rf in cases:
+        kw = dict(rest_filter=rf, tile_j=tile_j)
+        n = args[0].shape[0]
+        ki, kc = ck.refine_overlap_blocks_packed(n, *args, **kw)
+        pi, pc = ck.refine_blocks_plain(*args, **kw)
+        cnt, maxb = args[5], args[4].shape[1]
+        report.append({
+            "case": name, "tile_j": tile_j, "rest_filter": rf,
+            "equal": bool(torch.equal(ki, pi) and torch.equal(kc, pc)),
+            "repeats_bitwise": repeats(
+                lambda: ck.refine_overlap_blocks_packed(n, *args, **kw)),
+            "row_tiles": int(cnt.shape[0]), "maxb": maxb,
+            "tiles_listing_none": int((cnt == 0).sum()),
+            "tiles_listing_maxb": int((cnt == maxb).sum()),
+            "listed": int(cnt.sum()), "max_blocks_per_tile": int(cnt.max()),
+            "kept": int(pc.sum())})
+    return report
 
 
 def granular_phases(dev, lib):
@@ -379,10 +448,17 @@ def granular_phases(dev, lib):
     kw = dict(rest_filter=rest_filter, n_shapes_active=n_shapes)
     rollout_steps(g.state, spec, ptj[:2], qtj[:2], g.substeps, g.iterations,
                   record=False, **kw)  # warm-up
+
+    def path():  # in two calls, to keep the state of the landed frame
+        landed, _ = rollout_steps(g.state, spec, ptj[:T_LANDED],
+                                  qtj[:T_LANDED], g.substeps, g.iterations,
+                                  record=False, **kw)
+        return landed, rollout_steps(
+            landed, spec, ptj[T_LANDED:], qtj[T_LANDED:], g.substeps,
+            g.iterations, record=False, **kw)[0]
+
     reset_counts()
-    (final, _), secs = sync_time(lambda: rollout_steps(
-        g.state, spec, ptj, qtj, g.substeps, g.iterations, record=False,
-        **kw))
+    (landed, final), secs = sync_time(path)
     counts = read_counts()
     fp = final.particles
     act = fp.active
@@ -409,13 +485,19 @@ def granular_phases(dev, lib):
             or not finite or pushed == 0):
         raise RuntimeError("granular main path check failed")
     out["granular_counts"] = counts
+    la = kernel_inputs(landed, spec, tj)
+    out["k2_landed_args"] = (la["rows"], la["cols"], la["keep"],
+                             spec.params.collide_filter_dist, la["idx"],
+                             la["cnt"])
 
     # K4: fused K1 against the unfused K1 plus shape_stage_plain
     _phase[0] = "k4_check"
     cases, k4_err = [], 0.0
-    for tile_j, rf in itertools.product((128, 256), (True, False)):
-        r = fused_vs_unfused(four_kind_case(dev, tile_j), rf, tile_j)
-        cases.append({"scene": "four_kinds", **r})
+    for (name, shapes), tile_j, rf in itertools.product(
+            (("four_kinds", FOUR_KINDS), ("seven_slots", SEVEN_SLOTS)),
+            (128, 256), (True, False)):
+        r = fused_vs_unfused(shape_case(dev, tile_j, shapes), rf, tile_j)
+        cases.append({"scene": name, **r})
     # the design point's last frame: the pile on the table, the board in
     # it; K2 on the card against its plain version on the frame's lists
     prm = spec.params
@@ -449,14 +531,17 @@ def granular_phases(dev, lib):
                   **fused_vs_unfused(gcase, rest_filter, tj)})
     for c in cases:
         k4_err = max(k4_err, c["max_abs_err"])
-    four = [c for c in cases if c["scene"] == "four_kinds"]
+    # on the shape sets every valid slot meets particles, and an invalid
+    # one none
+    sets = [c for c in cases if c["scene"] != "granular_design_point"]
     k1_err = max(c["k1_max_abs_err"] for c in cases)
     ok = (all(c["counts_equal"] and c["max_abs_err"] <= K1_ATOL
               and c["k1_counts_equal"] and c["k1_max_abs_err"] <= K1_ATOL
               and c["finite"] and c["shape_contacts"] > 0
               and c["fused_repeats_bitwise"] and c["unfused_repeats_bitwise"]
               for c in cases)
-          and all(min(c["shape_contacts_by_slot"]) > 0 for c in four)
+          and all((n > 0) == v for c in sets for n, v in zip(
+              c["shape_contacts_by_slot"], c["valid_slots"]))
           and cases[-1]["particle_contacts"] > 0 and k2_case["equal"])
     emit({"phase": "k4_check", "ok": ok, "atol": K1_ATOL, "cases": cases,
           "k2_case": k2_case})
@@ -703,22 +788,29 @@ def granular_phases(dev, lib):
     s1 = ck.device_scalars(dev, *a["scal"])
     maxb = a["idx"].shape[1]
 
-    def k1_raw():
+    def k1_raw(block_cnt):
         ptrs = [t.data_ptr() for t in (a["rows"], a["cols"], a["idx"],
-                                       a["cnt"], s1, delta4, count4)]
+                                       block_cnt, s1, delta4, count4)]
         build.check(lib, lib.ag_block_sparse_contact(
             *ptrs, n, n_pad, maxb, tj, int(rest_filter), stream), "K1")
 
-    k2_args = a["k2_args"]
-    s2 = ck.device_scalars(dev, k2_args[2], k2_args[3])
-    new_idx, new_cnt = torch.empty_like(k2_args[4]), torch.empty_like(
-        k2_args[5])
+    def k2_raw(k2_args):
+        s2 = ck.device_scalars(dev, k2_args[2], k2_args[3])
+        new_idx = torch.empty_like(k2_args[4])
+        new_cnt = torch.empty_like(k2_args[5])
 
-    def k2_raw():
-        ptrs = [t.data_ptr() for t in (*k2_args[:2], *k2_args[4:], s2,
-                                       new_idx, new_cnt)]
-        build.check(lib, lib.ag_refine_blocks(
-            *ptrs, n_pad, maxb, tj, int(rest_filter), stream), "K2")
+        def launch():  # holds the scalars and outputs while it is timed
+            ptrs = [t.data_ptr() for t in (*k2_args[:2], *k2_args[4:], s2,
+                                           new_idx, new_cnt)]
+            build.check(lib, lib.ag_refine_blocks(
+                *ptrs, n_pad, k2_args[4].shape[1], tj, int(rest_filter),
+                stream), "K2")
+        return launch
+
+    # K2 at the design point's last frame, and at its first frame after
+    # landing
+    k2_args, k2_landed = a["k2_args"], out["k2_landed_args"]
+    k2_last, k2_land = k2_raw(k2_args), k2_raw(k2_landed)
 
     k1_args = (n, a["rows"], a["cols"], *a["scal"], a["idx"], a["cnt"])
     k1_kw = dict(rest_filter=rest_filter, tile_j=tj)
@@ -734,8 +826,12 @@ def granular_phases(dev, lib):
         "k3_b": event_ms(k3_raw, 100),
         "k3_plain_b": event_ms(lambda: ck.dense_contact_plain(*k3_best[1]), 5),
         "k4_plain_a": event_ms(lambda: ck.shape_stage_plain(*plain4), 10),
+        # K4 alone (the fused launch over empty lists) beside the unfused
+        # launch over the same empty lists, the floor it stands on
+        "k1_empty": event_ms(lambda: k1_raw(empty_cnt), 200),
         "k4_alone": event_ms(lambda: k4_raw(empty_cnt), 200),
         "k4_alone_b": event_ms(lambda: k4_raw(empty_cnt), 200),
+        "k1_empty_b": event_ms(lambda: k1_raw(empty_cnt), 200),
         "k4_plain_b": event_ms(lambda: ck.shape_stage_plain(*plain4), 10),
         "unfused_shape_pass_a": event_ms(
             lambda: shape_contact_deltas(*unfused), 20),
@@ -743,18 +839,24 @@ def granular_phases(dev, lib):
             lambda: shape_contact_deltas(*unfused), 20),
         "k1_granular_plain_a": event_ms(
             lambda: ck.block_sparse_contact_plain(*k1_args, **k1_kw), 3),
-        "k1_granular": event_ms(k1_raw, 100),
-        "k1_granular_b": event_ms(k1_raw, 100),
+        "k1_granular": event_ms(lambda: k1_raw(a["cnt"]), 100),
+        "k1_granular_b": event_ms(lambda: k1_raw(a["cnt"]), 100),
         "k1_granular_plain_b": event_ms(
             lambda: ck.block_sparse_contact_plain(*k1_args, **k1_kw), 3),
         "k1_fused_granular": event_ms(lambda: k4_raw(a["cnt"]), 100),
         "k1_fused_granular_b": event_ms(lambda: k4_raw(a["cnt"]), 100),
         "k2_granular_plain_a": event_ms(
             lambda: ck.refine_blocks_plain(*k2_args, **k1_kw), 3),
-        "k2_granular": event_ms(k2_raw, 100),
-        "k2_granular_b": event_ms(k2_raw, 100),
+        "k2_granular": event_ms(k2_last, 100),
+        "k2_granular_b": event_ms(k2_last, 100),
         "k2_granular_plain_b": event_ms(
             lambda: ck.refine_blocks_plain(*k2_args, **k1_kw), 3),
+        "k2_landed_plain_a": event_ms(
+            lambda: ck.refine_blocks_plain(*k2_landed, **k1_kw), 3),
+        "k2_landed": event_ms(k2_land, 100),
+        "k2_landed_b": event_ms(k2_land, 100),
+        "k2_landed_plain_b": event_ms(
+            lambda: ck.refine_blocks_plain(*k2_landed, **k1_kw), 3),
     }
     _, pc3 = ck.dense_contact_plain(*k3_best[1])
     contacts3 = int(pc3.sum())
@@ -765,29 +867,32 @@ def granular_phases(dev, lib):
     k3_ops = DETECT_OPS * pairs3 + PROJECT_OPS * contacts3
     # K1 and K2 at the design point, counted as at the rope point: K1's
     # detection on every listed pair and projection on each contact; K2's
-    # detection on the pairs its first-hit scan evaluates
+    # detection on the listed pairs within its keep distance (near_pairs)
     nb = a["idx"].shape[0]
     table_bytes = 2 * n_pad * 16 * 4
     list_bytes = (nb * maxb + nb) * 4
     pairs1 = int(a["cnt"].sum()) * ck.TILE * tj
     k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
     k1_ops = DETECT_OPS * pairs1 + PROJECT_OPS * k1_contacts
-    pairs2 = first_hit_pairs(k2_args[0], k2_args[1], k2_args[2], k2_args[3],
-                             k2_args[4], k2_args[5], tj, rest_filter)
     k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
-    k2_ops = DETECT_OPS * pairs2
+    pairs2 = int(k2_args[5].sum()) * ck.TILE * tj
+    pairs2_landed = int(k2_landed[5].sum()) * ck.TILE * tj
+    near2 = near_pairs(*k2_args[:3], *k2_args[4:], tj)
+    near2_landed = near_pairs(*k2_landed[:3], *k2_landed[4:], tj)
     per_particle_ops = shape_ops(a["shp"], a["planes2d"])
     k4_bytes = n * 6 * 4 + n * 4 * 4 + a["shp"].numel() * 4
     k4_ops = n * per_particle_ops
     out["k1_bound"] = bound(k1_bytes, k1_ops)
-    out["k2_bound"] = bound(k2_bytes, k2_ops)
+    out["k2_bound"] = bound(k2_bytes, DETECT_OPS * near2)
+    out["k2_landed_bound"] = bound(k2_bytes, DETECT_OPS * near2_landed)
     out["k3_bound"] = bound(k3_bytes, k3_ops)
     out["k4_bound"] = bound(k4_bytes, k4_ops)
     out["times"] = times
     out["geometry"] = {
         "k1_granular": build.launch_geometry(lib, "k1", n_pad, maxb),
         "k3": build.launch_geometry(lib, "k3", dn_pad),
-        "k2_granular": build.launch_geometry(lib, "k2", n_pad, maxb)}
+        "k2_granular": build.launch_geometry(lib, "k2", n_pad,
+                                             k2_args[4].shape[1])}
     out["detail"] = {
         "k3": {"n": dn_, "n_active": d.n_active, "n_pad": dn_pad,
                "pairs": pairs3,
@@ -795,14 +900,22 @@ def granular_phases(dev, lib):
         "k4": {"n": n, "valid_shapes": int((a["shp"][:, 1] > 0.5).sum()),
                "shape_rows": n_shapes, "ops_per_particle": per_particle_ops,
                "bytes": k4_bytes, "ops": k4_ops,
-               "timed_as": "fused launch over empty block lists"},
+               "timed_as": "fused launch over empty block lists, less the "
+                           "unfused launch over the same lists"},
         "k1_granular": {"tile_j": tj, "rest_filter": rest_filter,
                         "listed_blocks": int(a["cnt"].sum()),
                         "pairs": pairs1, "contacts": k1_contacts,
                         "bytes": k1_bytes, "ops": k1_ops},
         "k2_granular": {"listed_blocks": int(k2_args[5].sum()),
-                        "scanned_pairs": pairs2, "bytes": k2_bytes,
-                        "ops": k2_ops}}
+                        "max_blocks_per_tile": int(k2_args[5].max()),
+                        "listed_pairs": pairs2, "near_pairs": near2,
+                        "bytes": k2_bytes, "ops": DETECT_OPS * near2},
+        "k2_landed": {"frame": T_LANDED,
+                      "listed_blocks": int(k2_landed[5].sum()),
+                      "max_blocks_per_tile": int(k2_landed[5].max()),
+                      "listed_pairs": pairs2_landed,
+                      "near_pairs": near2_landed, "bytes": k2_bytes,
+                      "ops": DETECT_OPS * near2_landed}}
     return out
 
 
@@ -1011,17 +1124,16 @@ def main():
     }
     _, pc = ck.block_sparse_contact_plain(*k1_args)
     pairs_k1 = int(rcnt.sum()) * 128 * 128
-    # K2 stops each row's scan of a block at its first eligible column
-    pairs_k2 = first_hit_pairs(a["rows"], a["cols"], a["keep"],
-                               prm.collide_filter_dist, a["idx"], a["cnt"],
-                               128)
+    pairs_k2 = int(a["cnt"].sum()) * 128 * 128
+    near_k2 = near_pairs(a["rows"], a["cols"], a["keep"], a["idx"], a["cnt"],
+                         128)
     contacts = int(pc.sum())
     table_bytes = 2 * n_pad * 16 * 4
     list_bytes = (nb * maxb + nb) * 4
     k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
     k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
     k1_ops = DETECT_OPS * pairs_k1 + PROJECT_OPS * contacts
-    k2_ops = DETECT_OPS * pairs_k2
+    k2_ops = DETECT_OPS * near_k2
 
     b1, by1 = bound(k1_bytes, k1_ops)
     b2, by2 = bound(k2_bytes, k2_ops)
@@ -1033,8 +1145,7 @@ def main():
         "k1": {"listed_blocks": int(rcnt.sum()), "pairs": pairs_k1,
                "contacts": contacts, "bytes": k1_bytes, "ops": k1_ops},
         "k2": {"listed_blocks": int(a["cnt"].sum()),
-               "listed_pairs": int(a["cnt"].sum()) * 128 * 128,
-               "scanned_pairs": pairs_k2,
+               "listed_pairs": pairs_k2, "near_pairs": near_k2,
                "bytes": k2_bytes, "ops": k2_ops}}
 
     # three frames on the card against three on the CPU from the same
@@ -1105,6 +1216,34 @@ def main():
 
     gran = granular_phases(dev, lib)
     gt = gran["times"]
+
+    # K2's edges: the granular design point's first frame after landing
+    # (lists up to 20 blocks long, none kept), bench.py's pinned rope
+    # (every block pruned),
+    # and synthetic lists on the rope's check frame (tiles listing none,
+    # tiles listing maxb, stale indices past each count) in K2's four forms
+    _phase[0] = "k2_edges"
+    cases = [("granular_landed", gran["k2_landed_args"], DESIGN["tile_j"],
+              False)]
+    a = kernel_inputs(bp.state, bp.spec, 128)
+    cases.append(("bench_pinned", (a["rows"], a["cols"], a["keep"],
+                                   a["prm"].collide_filter_dist, a["idx"],
+                                   a["cnt"]), 128, True))
+    for tile_j, rf in itertools.product((128, 256), (True, False)):
+        a = kernel_inputs(pushed, spec, tile_j, granular_groups=not rf)
+        nb, maxb = a["idx"].shape
+        idx, cnt = edge_block_lists(nb, a["cols"].shape[1] // tile_j, maxb,
+                                    seed=tile_j + rf)
+        cases.append(("synthetic", (
+            a["rows"], a["cols"], a["keep"], a["prm"].collide_filter_dist,
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(cnt, device=dev)), tile_j, rf))
+    edges = k2_edges(cases)
+    ok = all(c["equal"] and c["repeats_bitwise"] for c in edges)
+    emit({"phase": "k2_edges", "ok": ok, "cases": edges})
+    if not ok:
+        raise RuntimeError("K2 disagrees with its plain version on an edge "
+                           "case")
     emit({"phase": "kernel_times", "ok": True, "rope": rope_times,
           "granular": {"times_ms": gt, **gran["detail"]},
           "library_ms": "null: no single PyTorch call computes any of the "
@@ -1125,6 +1264,8 @@ def main():
     pk = "adaptigraph_tpu/engine/pallas_kernels.py"
     b3, by3 = gran["k3_bound"]
     b4, by4 = gran["k4_bound"]
+    k4_alone = min(gt["k4_alone"], gt["k4_alone_b"])
+    k1_empty = min(gt["k1_empty"], gt["k1_empty_b"])
 
     def at_design_point(key):
         ms, by = gran[f"{key}_bound"]
@@ -1158,7 +1299,15 @@ def main():
          "bound_ms": b2, "bound_by": by2, "library_ms": None,
          "geometry": rope_geometry["k2"],
          "timed_at": "rope check frame, tile_j 128, rest_filter on",
-         "granular": at_design_point("k2")},
+         "granular": at_design_point("k2"),
+         "granular_landed": {
+             "ms": min(gt["k2_landed"], gt["k2_landed_b"]),
+             "plain_ms": min(gt["k2_landed_plain_a"],
+                             gt["k2_landed_plain_b"]),
+             "bound_ms": gran["k2_landed_bound"][0],
+             "bound_by": gran["k2_landed_bound"][1],
+             "timed_at": f"granular design point's frame {T_LANDED}, its "
+                         f"first frame after landing"}},
         {"name": "dense_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:712",
          "launches": total("k3"), "launches_by_path": per_path("k3"),
@@ -1172,14 +1321,20 @@ def main():
          "replaces": f"{pk}:137",
          "launches": total("k4"), "launches_by_path": per_path("k4"),
          "max_abs_err": gran["k4_err"],
-         "ms": min(gt["k4_alone"], gt["k4_alone_b"]),
+         "ms": k4_alone - k1_empty,
          "plain_ms": min(gt["k4_plain_a"], gt["k4_plain_b"]),
          "bound_ms": b4, "bound_by": by4, "library_ms": None,
+         "alone_ms": k4_alone, "k1_empty_ms": k1_empty,
+         "fused_increment_ms": (
+             min(gt["k1_fused_granular"], gt["k1_fused_granular_b"])
+             - min(gt["k1_granular"], gt["k1_granular_b"])),
          "unfused_pass_ms": min(gt["unfused_shape_pass_a"],
                                 gt["unfused_shape_pass_b"]),
          "geometry": gran["geometry"]["k1_granular"],
-         "timed_at": "granular design point's last frame, fused launch "
-                     "over empty block lists"},
+         "timed_at": "granular design point's last frame: the fused launch "
+                     "over empty block lists less the unfused one (alone_ms "
+                     "less k1_empty_ms); fused_increment_ms over the "
+                     "frame's lists"},
     ]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

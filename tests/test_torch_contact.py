@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from adaptigraph_tpu.engine import pallas_kernels as jpk
 from adaptigraph_torch.engine import contact_kernels as tck
+from chip_smoke import FOUR_KINDS, SEVEN_SLOTS, edge_block_lists
 
 
 def _chain(n=512, spacing=0.05):
@@ -153,6 +154,34 @@ def test_block_refine_plain_matches_pallas(scene, rest_filter, tile_j):
         rest_filter=rest_filter, tile_j=tile_j)
     np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
     np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+
+
+@pytest.mark.parametrize("rest_filter", [True, False])
+@pytest.mark.parametrize("tile_j", [128, 256])
+def test_block_refine_plain_matches_pallas_on_edge_lists(rest_filter, tile_j):
+    """K2's edge cases, on the synthetic lists chip_smoke.py holds the
+    kernel to (edge_block_lists): tiles listing no block, tiles listing
+    maxb, and stale indices in the slots at or past each count. The plain
+    version equals the Pallas kernel exactly: the flagged slots first, then
+    every other slot, stale ones included, each in slot order."""
+    s = _cloud(1000)
+    ja, ta = _both(s)
+    jr, jc = jpk.pack_contact_tables(*ja, tile_j=tile_j)
+    tr, tc = tck.pack_contact_tables(*ta, tile_j=tile_j)
+    nb, nb_j = tc.shape[1] // tck.TILE, tc.shape[1] // tile_j
+    idx, cnt = edge_block_lists(nb, nb_j, nb_j, seed=tile_j + rest_filter)
+    keep, filt = np.float32(s["rest_dist"] * 1.2), np.float32(s["filter_dist"])
+    n = len(s["pos"])
+    ji, jn = jpk.refine_overlap_blocks_packed(
+        n, jr, jc, keep, filt, jnp.asarray(idx), jnp.asarray(cnt),
+        interpret=True, rest_filter=rest_filter, tile_j=tile_j)
+    ti, tn = tck.refine_overlap_blocks_packed(
+        n, tr, tc, _f32(keep), _f32(filt), torch.as_tensor(idx),
+        torch.as_tensor(cnt), rest_filter=rest_filter, tile_j=tile_j)
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+    assert (cnt == 0).any() and (cnt == nb_j).any()
+    assert 0 < int(tn.sum()) < int(cnt.sum())  # the compaction reorders
 
 
 @pytest.mark.parametrize("n,spacing,tile_j", [(512, 0.05, 128),
@@ -296,50 +325,45 @@ def test_dense_sweep_equals_block_sweep_over_every_block():
     torch.testing.assert_close(d1, d3, rtol=0, atol=1e-6)
 
 
-def _shape_scene():
+def _shape_scene(shapes=FOUR_KINDS):
     """tests/test_pallas_kernels.py's fused-stage scene: 256 particles in
-    groups of 16 (no self-collision), a floor plane, a box, a capsule and
-    a convex tetrahedron (one padding slot), random shape velocities."""
+    groups of 16 (no self-collision) and random shape velocities, against
+    a shape set of chip_smoke.py (make_shapes' arguments, its m_max and the
+    active slot count): FOUR_KINDS, the Pallas test's floor plane, box,
+    capsule and convex tetrahedron (one padding slot), or SEVEN_SLOTS."""
     from adaptigraph_tpu.engine import state as jstate
 
     rng = np.random.RandomState(3)
     n = 256
     pos = (rng.rand(n, 3).astype(np.float32) * 1.2
            - np.array([0.6, 0.0, 0.6], np.float32))
-    tetra = np.array([[1, 0, 0, 0.2], [0, 1, 0, 0.2], [0, 0, 1, 0.2],
-                      [-0.577, -0.577, -0.577, 0.1]], np.float32)
-    shapes = jstate.make_shapes(
-        [jstate.SHAPE_PLANE, jstate.SHAPE_BOX, jstate.SHAPE_CAPSULE,
-         jstate.SHAPE_CONVEX],
-        [[0, 0, 0], [0.3, 0.2, 0.3], [0.1, 0.3, 0], [0, 0, 0]],
-        [[0, 0, 0], [0.2, 0.15, 0.0], [-0.3, 0.2, 0.1], [0.1, 0.1, -0.2]],
-        [[0, 0, 0, 1], [0.1, 0.2, 0.0, 0.97], [0, 0, 0.38, 0.92],
-         [0.2, 0, 0.1, 0.97]],
-        m_max=5, planes=[None, None, None, tetra])
+    sh = jstate.make_shapes(shapes["kinds"], shapes["sizes"],
+                            shapes["poses"], shapes["quats"],
+                            m_max=shapes["m_max"], planes=shapes["planes"])
     s = dict(pos=pos, prev=pos - rng.randn(n, 3).astype(np.float32) * 0.01,
              group=(np.arange(n) // 16).astype(np.int32),
              inv_mass=np.ones(n, np.float32), sc=np.zeros(n, bool),
              active=np.ones(n, bool), rest=rng.rand(n, 3).astype(np.float32),
              rest_dist=0.05, friction=0.25, filter_dist=0.0)
-    a = 4  # active shape slots
-    s_vel = rng.randn(5, 3).astype(np.float32) * 0.05
+    a = shapes["active"]  # active shape slots
+    s_vel = rng.randn(shapes["m_max"], 3).astype(np.float32) * 0.05
     shp = np.concatenate([
-        np.asarray(shapes.kind)[:a, None].astype(np.float32),
-        np.asarray(shapes.valid)[:a, None].astype(np.float32),
-        np.asarray(shapes.size)[:a], np.asarray(shapes.pos)[:a],
-        np.asarray(shapes.quat)[:a], s_vel[:a], np.zeros((a, 1), np.float32)],
+        np.asarray(sh.kind)[:a, None].astype(np.float32),
+        np.asarray(sh.valid)[:a, None].astype(np.float32),
+        np.asarray(sh.size)[:a], np.asarray(sh.pos)[:a],
+        np.asarray(sh.quat)[:a], s_vel[:a], np.zeros((a, 1), np.float32)],
         axis=1)
-    planes2d = np.array(shapes.planes)[:a].reshape(-1, 4)
+    planes2d = np.array(sh.planes)[:a].reshape(-1, 4)
     return s, shp, planes2d, (0.04, 0.0, 0.3, 1.0 / 60)
 
 
-@pytest.mark.parametrize("rest_filter", [True, False])
-@pytest.mark.parametrize("tile_j", [128, 256])
-def test_fused_shape_stage_plain_matches_pallas(rest_filter, tile_j):
+def _fused_shape_stage_matches_pallas(rest_filter, tile_j,
+                                      shapes=FOUR_KINDS):
     """The K1 wrapper with shape tables (K4's CPU form: the plain sweep
-    plus shape_stage_plain) against the JAX fused K1 on the four-kind
-    shape set: counts exact, deltas to 2e-5; every kind has contacts."""
-    s, shp, planes2d, sp = _shape_scene()
+    plus shape_stage_plain) against the JAX fused K1 on _shape_scene's
+    shape set: counts exact, deltas to 2e-5; every valid slot has
+    contacts, an invalid one none."""
+    s, shp, planes2d, sp = _shape_scene(shapes)
     ja, ta = _both(s)
     (jidx, jcnt, _), (tidx, tcnt, _) = _blocks(s, tile_j)
     jr, jc = jpk.pack_contact_tables(*ja, tile_j=tile_j)
@@ -356,12 +380,33 @@ def test_fused_shape_stage_plain_matches_pallas(rest_filter, tile_j):
         shape_params=sp)
     np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
     np.testing.assert_allclose(np.asarray(jd), td.numpy(), rtol=0, atol=2e-5)
-    for k in range(shp.shape[0]):  # each kind alone meets particles
+    n_planes = planes2d.shape[0] // shp.shape[0]
+    for k in range(shp.shape[0]):  # each valid slot alone meets particles
+        pl = planes2d[n_planes * k:n_planes * (k + 1)]
         _, ck = tck.shape_stage_plain(tr[:n, 0:3], tr[:n, 3:6],
                                       torch.as_tensor(shp[k:k + 1]),
-                                      torch.as_tensor(planes2d[4 * k:4 * k + 4]),
-                                      *sp)
-        assert ck.sum() > 0, k
+                                      torch.as_tensor(pl), *sp)
+        assert (ck.sum() > 0) == (shp[k, 1] > 0.5), k
+
+
+@pytest.mark.parametrize("rest_filter", [True, False])
+@pytest.mark.parametrize("tile_j", [128, 256])
+def test_fused_shape_stage_plain_matches_pallas(rest_filter, tile_j):
+    """K4's CPU form against the JAX fused K1 on the four-kind shape set:
+    counts exact, deltas to 2e-5; every kind has contacts."""
+    _fused_shape_stage_matches_pallas(rest_filter, tile_j)
+
+
+def test_fused_shape_stage_plain_matches_pallas_seven_slots():
+    """The same on chip_smoke.SEVEN_SLOTS, the set the smoke holds K4's
+    lane split to at a shape count that is not a multiple of its 4 lanes:
+    7 active slots, one of them invalid, two of them convex (a tetrahedron
+    padded to the cube's 6 planes, and the cube). In the design point's
+    form only (tile_j 256, no rest filter): the interpreted JAX stage
+    takes ~13 s a form at 7 shapes, and the four-kind test covers the
+    forms."""
+    assert SEVEN_SLOTS["active"] % 4 and SEVEN_SLOTS["kinds"].count(3) == 2
+    _fused_shape_stage_matches_pallas(False, 256, SEVEN_SLOTS)
 
 
 def test_shape_stage_plain_matches_the_unfused_pass():
@@ -497,7 +542,7 @@ def test_launch_geometry_reads_the_library():
         def ag_contact_geometry(self, kernel, n_pad, maxb, out):
             if n_pad % 128:
                 return 1
-            split, lanes = {1: (2, 4), 2: (1, 1), 3: (8, 4)}[kernel]
+            split, lanes = {1: (2, 4), 2: (2, 4), 3: (8, 4)}[kernel]
             out[0], out[1] = n_pad // 128 * split, split
             out[2], out[3] = lanes, 128 * lanes
             return 0
@@ -509,7 +554,7 @@ def test_launch_geometry_reads_the_library():
         "ctas": 128, "cluster": 8, "lanes": 4, "threads": 512}
     assert build.launch_geometry(Lib(), "k1", 5120, 40)["cluster"] == 2
     assert build.launch_geometry(Lib(), "k2", 5120, 40) == {
-        "ctas": 40, "cluster": 1, "lanes": 1, "threads": 128}
+        "ctas": 80, "cluster": 2, "lanes": 4, "threads": 512}
     with pytest.raises(RuntimeError, match="ag_contact_geometry"):
         build.launch_geometry(Lib(), "k1", 100, 1)
     assert "ag_contact_geometry" in build.SIGNATURES
@@ -551,10 +596,11 @@ def test_kernel_turns_launches_match_the_c_signatures():
         assert len(outs) == 2
     assert nb == cols.shape[1] // tck.TILE
     assert names == [("k1", "k1"), ("k1_fused", "k1"), ("k4_alone", "k1"),
-                     ("k2", "k2"), ("k3", "k3"), ("k1_full_list", "k1")]
+                     ("k1_empty", "k1"), ("k2", "k2"), ("k3", "k3"),
+                     ("k1_full_list", "k1")]
     assert Lib.calls == [
         "ag_block_sparse_contact", "ag_block_sparse_contact_shapes",
-        "ag_block_sparse_contact_shapes", "ag_refine_blocks",
-        "ag_dense_contact", "ag_block_sparse_contact"]
+        "ag_block_sparse_contact_shapes", "ag_block_sparse_contact",
+        "ag_refine_blocks", "ag_dense_contact", "ag_block_sparse_contact"]
     with pytest.raises(SystemExit, match="splits"):
         kt.main(["--base", "base.cu", "--splits", "3"])

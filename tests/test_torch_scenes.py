@@ -109,3 +109,39 @@ def test_scene_round_trips_through_numpy():
                 assert fa[k].dtype == fb[k].dtype, k
                 np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
     assert st.particles.group.dtype == torch.int32
+
+
+class _Made(Exception):
+    """Raised by the make_shapes spy once it has seen its device."""
+
+
+def test_design_points_make_shapes_on_the_resolved_device(monkeypatch):
+    """rope_design_point and granular_shapes hand make_shapes the device
+    resolve_device gives (CUDA when none is named), never None: shapes and
+    particles then land on one device. With no device and no GPU both raise
+    before they make anything; with a device named, shapes and particles
+    are on it."""
+    from adaptigraph_torch.scenes import design_point as dp
+
+    seen = []
+
+    def spy(*args, device=None, **kw):
+        seen.append(device)
+        raise _Made
+
+    monkeypatch.setattr(dp, "make_shapes", spy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for make in (dp.rope_design_point, dp.granular_shapes):
+        with pytest.raises(_Made):
+            make()
+    assert seen == [torch.device("cuda")] * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (dp.rope_design_point, dp.granular_shapes):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert len(seen) == 2
+    monkeypatch.undo()
+    assert dp.granular_shapes("cpu").pos.device == torch.device("cpu")
+    b = dp.rope_design_point("cpu")
+    assert b.state.shapes.pos.device == b.state.particles.pos.device
+    assert b.state.particles.pos.device == torch.device("cpu")
