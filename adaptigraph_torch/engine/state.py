@@ -41,6 +41,29 @@ class SpringSet(NamedTuple):
     valid: torch.Tensor  # (S,) bool
 
 
+class SpringIncidence(NamedTuple):
+    """Transposed spring topology: per-particle incident-spring lists, so
+    the spring pass gathers per-spring corrections back to the endpoints:
+    delta[n] = inv_mass[n] * sum_d sign[n, d] * corr[idx[n, d]]."""
+
+    idx: torch.Tensor  # (N, D) int32 incident spring ids (0-padded)
+    sign: torch.Tensor  # (N, D) f32: +1 endpoint i, -1 endpoint j, 0 pad
+
+
+class OffsetSprings(NamedTuple):
+    """Spring families at static index offsets: family f connects particle
+    k to particle k + offsets[f] for every k in [0, N - offsets[f]), with
+    its rest length, stiffness and valid flag at row f, entry k. The cloth
+    grid's stretch, bend and shear springs are six such families, a chain
+    is one. `offsets` is a tuple of Python ints (the JAX package keeps it
+    as static pytree data), so endpoint reads are slices."""
+
+    offsets: tuple
+    rest: torch.Tensor  # (F, N) f32
+    stiffness: torch.Tensor  # (F, N) f32
+    valid: torch.Tensor  # (F, N) bool
+
+
 class ClusterSet(NamedTuple):
     """Shape-matching clusters: possibly overlapping particle groups pulled
     toward a rigidly transformed rest shape."""
@@ -159,9 +182,15 @@ class SceneSpec(NamedTuple):
     global_rest: torch.Tensor
     rest_pos: torch.Tensor  # (N, 3)
     params: SolverParams
+    # per-particle incident-spring table: the spring pass gathers; None
+    # takes the scatter form
+    spring_inc: SpringIncidence | None = None
     cluster_inc: ClusterIncidence | None = None
     cluster_mm: ClusterMatmul | None = None
     cluster_seg: ClusterSegments | None = None
+    # static-offset spring families, applied in addition to `springs`
+    # (empty_springs(0) when every spring is in a family)
+    offset_springs: OffsetSprings | None = None
 
 
 class SceneState(NamedTuple):
@@ -171,6 +200,8 @@ class SceneState(NamedTuple):
     shapes: ShapeSet
     cluster_rot: torch.Tensor  # (C, 4)
     global_rot: torch.Tensor  # (4,)
+    # plastic rest offsets (C, K, 3): None = elastic clusters. Seed with a
+    # copy of spec.clusters.rest to enable plastic flow
     cluster_rest: torch.Tensor | None = None
     # running count of AABB-overlapping tile pairs dropped by the block
     # contact sweep's per-row cap; nonzero means contacts were skipped
@@ -229,6 +260,36 @@ def empty_springs(capacity: int, device="cpu") -> SpringSet:
         rest=torch.zeros((capacity,), dtype=torch.float32, device=device),
         stiffness=torch.zeros((capacity,), dtype=torch.float32, device=device),
         valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+    )
+
+
+def make_springs(idx, rest, stiffness, capacity=None,
+                 device="cpu") -> SpringSet:
+    """A SpringSet padded to `capacity` from an (s, 2) index list; rest and
+    stiffness broadcast to (s,)."""
+    idx = np.asarray(idx, dtype=np.int32).reshape(-1, 2)
+    s = idx.shape[0]
+    capacity = capacity or s
+    idx_p = np.zeros((capacity, 2), dtype=np.int32)
+    rest_p = np.zeros((capacity,), dtype=np.float32)
+    stiff_p = np.zeros((capacity,), dtype=np.float32)
+    valid_p = np.zeros((capacity,), dtype=bool)
+    idx_p[:s] = idx
+    rest_p[:s] = np.broadcast_to(np.asarray(rest, dtype=np.float32), (s,))
+    stiff_p[:s] = np.broadcast_to(np.asarray(stiffness, dtype=np.float32),
+                                  (s,))
+    valid_p[:s] = True
+    return SpringSet(idx=_t(idx_p, device), rest=_t(rest_p, device),
+                     stiffness=_t(stiff_p, device), valid=_t(valid_p, device))
+
+
+def empty_clusters(c: int, k: int, device="cpu") -> ClusterSet:
+    return ClusterSet(
+        member=torch.zeros((c, k), dtype=torch.int32, device=device),
+        member_valid=torch.zeros((c, k), dtype=torch.bool, device=device),
+        rest=torch.zeros((c, k, 3), dtype=torch.float32, device=device),
+        stiffness=torch.zeros((c,), dtype=torch.float32, device=device),
+        valid=torch.zeros((c,), dtype=torch.bool, device=device),
     )
 
 
@@ -297,6 +358,98 @@ def make_shapes(kinds, sizes, poses, quats, m_max=None, planes=None, p_max=0,
 
 def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def build_spring_incidence(springs: SpringSet, n: int,
+                           d_max: int | None = None) -> SpringIncidence:
+    """Host-side (numpy) transpose of the spring index list. d_max sets the
+    table width (default: the largest incident degree)."""
+    device = springs.idx.device
+    idx = _np(springs.idx).reshape(-1, 2)
+    valid = _np(springs.valid).reshape(-1)
+    s = idx.shape[0]
+    sid = np.concatenate([np.arange(s), np.arange(s)])
+    ends = np.concatenate([idx[:, 0], idx[:, 1]])
+    sign = np.concatenate([np.ones(s, np.float32), -np.ones(s, np.float32)])
+    keep = np.concatenate([valid, valid])
+    sid, ends, sign = sid[keep], ends[keep], sign[keep]
+    deg = np.bincount(ends, minlength=n) if len(ends) else np.zeros(n, np.int64)
+    d = int(d_max if d_max is not None else max(int(deg.max(initial=0)), 1))
+    inc_idx = np.zeros((n, d), dtype=np.int32)
+    inc_sign = np.zeros((n, d), dtype=np.float32)
+    order = np.argsort(ends, kind="stable")
+    ends_s = ends[order]
+    first = np.searchsorted(ends_s, ends_s, side="left")
+    rank = np.arange(len(ends_s)) - first
+    ok = rank < d
+    inc_idx[ends_s[ok], rank[ok]] = sid[order][ok]
+    inc_sign[ends_s[ok], rank[ok]] = sign[order][ok]
+    if not ok.all() and d_max is None:
+        raise ValueError("spring incidence overflow")
+    return SpringIncidence(idx=_t(inc_idx, device), sign=_t(inc_sign, device))
+
+
+def make_offset_springs(n: int, families, device="cpu") -> OffsetSprings:
+    """families: list of (offset, rest, stiffness, valid), rest / stiffness
+    / valid arrays of length n - offset (or scalars). Host-side numpy."""
+    f = len(families)
+    rest = np.zeros((f, n), np.float32)
+    stiff = np.zeros((f, n), np.float32)
+    valid = np.zeros((f, n), bool)
+    offsets = []
+    for fi, (o, r, s, v) in enumerate(families):
+        o = int(o)
+        if not 0 < o < n:
+            raise ValueError(f"spring offset {o} outside (0, {n})")
+        offsets.append(o)
+        rest[fi, : n - o] = np.broadcast_to(np.asarray(r, np.float32), (n - o,))
+        stiff[fi, : n - o] = np.broadcast_to(np.asarray(s, np.float32),
+                                             (n - o,))
+        valid[fi, : n - o] = np.broadcast_to(np.asarray(v, bool), (n - o,))
+    return OffsetSprings(tuple(offsets), _t(rest, device), _t(stiff, device),
+                         _t(valid, device))
+
+
+def springs_to_offset_families(idx, rest, stiffness, n: int,
+                               max_families: int = 12, device="cpu"):
+    """Split a spring list into static-offset families and an irregular
+    remainder (host numpy, the JAX package's calls in its order, so both
+    give the same families). Returns (OffsetSprings | None, leftover_mask):
+    spring s joins a family when its index offset is among the most shared
+    and its slot (offset, lower index) is unclaimed; grid and chain
+    topologies convert fully."""
+    idx = np.asarray(idx, np.int64).reshape(-1, 2)
+    rest = np.asarray(rest, np.float32).reshape(-1)
+    stiffness = np.asarray(stiffness, np.float32).reshape(-1)
+    lo = idx.min(axis=1)
+    off = np.abs(idx[:, 1] - idx[:, 0])
+    leftover = np.zeros(len(idx), bool)
+    leftover |= off == 0  # degenerate
+    offs, counts = np.unique(off[~leftover], return_counts=True)
+    # not a stable sort: the same call as the JAX package's gives the same
+    # family order
+    order = np.argsort(-counts)
+    families = []
+    for oi in order[:max_families]:
+        o = int(offs[oi])
+        sel = np.nonzero((off == o) & ~leftover)[0]
+        starts = lo[sel]
+        first = np.unique(starts, return_index=True)[1]  # dedupe (o, i) slots
+        take = sel[first]
+        r = np.zeros(n - o, np.float32)
+        s = np.zeros(n - o, np.float32)
+        v = np.zeros(n - o, bool)
+        r[lo[take]] = rest[take]
+        s[lo[take]] = stiffness[take]
+        v[lo[take]] = True
+        families.append((o, r, s, v))
+        claimed = np.zeros(len(idx), bool)
+        claimed[take] = True
+        leftover |= (off == o) & ~claimed
+        off = np.where(claimed, -1, off)  # retire converted springs
+    if not families:
+        return None, np.ones(len(idx), bool)
+    return make_offset_springs(n, families, device), leftover
 
 
 def build_cluster_incidence(clusters: ClusterSet, n: int,
@@ -490,16 +643,20 @@ def trim_cluster_matmul(spec: SceneSpec) -> SceneSpec:
 def tree_to_numpy(obj):
     """A container flattened by field name: each NamedTuple becomes a dict
     of its fields, each array leaf (torch tensor, or any array numpy can
-    read, such as a JAX array) a numpy array; None stays None. The inverse
+    read, such as a JAX array) a numpy array; None stays None. The JAX
+    package's OffsetSprings, a pytree class, becomes the dict of this
+    package's OffsetSprings fields, `offsets` an int64 array. The inverse
     of `scene_from_numpy` for either package's scenes."""
     if obj is None:
         return None
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: tree_to_numpy(v) for k, v in obj._asdict().items()}
+    if all(hasattr(obj, f) for f in OffsetSprings._fields):
+        return {f: tree_to_numpy(getattr(obj, f))
+                for f in OffsetSprings._fields}
+    if isinstance(obj, tuple):  # OffsetSprings.offsets
+        return np.asarray(obj, dtype=np.int64)
     return _np(obj)
-
-
-_SPEC_FIELDS_NOT_PORTED = ("spring_inc", "offset_springs")
 
 
 def _leaf(a, device):
@@ -516,19 +673,25 @@ def _named(cls, d: dict, device):
                   for k in cls._fields if k in d})
 
 
+def _offset_springs(d: dict | None, device):
+    if d is None:
+        return None
+    return OffsetSprings(tuple(int(o) for o in np.asarray(d["offsets"])),
+                         *(_leaf(d[k], device)
+                           for k in OffsetSprings._fields[1:]))
+
+
+def _optional(cls, d: dict | None, device):
+    return None if d is None else _named(cls, d, device)
+
+
 def scene_from_numpy(state: dict, spec: dict, device=None):
     """(SceneState, SceneSpec) on `device` from a JAX scene flattened by
-    field name to numpy arrays: each NamedTuple becomes a dict of its
-    fields, each leaf a numpy array (or None). Spec parts the port does
-    not cover yet (spring incidence, offset springs) raise
-    NotImplementedError when present."""
+    field name to numpy arrays (tree_to_numpy): each NamedTuple becomes a
+    dict of its fields, each leaf a numpy array (or None)."""
     from adaptigraph_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    for k in _SPEC_FIELDS_NOT_PORTED:
-        if spec.get(k) is not None:
-            raise NotImplementedError(
-                f"spec.{k} is not ported yet (ROADMAP Queue 1 item 6)")
     params = make_params(device, **{k: float(np.asarray(v))
                                     for k, v in spec["params"].items()})
     out_spec = SceneSpec(
@@ -538,12 +701,13 @@ def scene_from_numpy(state: dict, spec: dict, device=None):
         global_rest=_leaf(spec["global_rest"], device),
         rest_pos=_leaf(spec["rest_pos"], device),
         params=params,
-        cluster_inc=(None if spec.get("cluster_inc") is None else
-                     _named(ClusterIncidence, spec["cluster_inc"], device)),
-        cluster_mm=(None if spec.get("cluster_mm") is None else
-                    _named(ClusterMatmul, spec["cluster_mm"], device)),
-        cluster_seg=(None if spec.get("cluster_seg") is None else
-                     _named(ClusterSegments, spec["cluster_seg"], device)),
+        spring_inc=_optional(SpringIncidence, spec.get("spring_inc"), device),
+        cluster_inc=_optional(ClusterIncidence, spec.get("cluster_inc"),
+                              device),
+        cluster_mm=_optional(ClusterMatmul, spec.get("cluster_mm"), device),
+        cluster_seg=_optional(ClusterSegments, spec.get("cluster_seg"),
+                              device),
+        offset_springs=_offset_springs(spec.get("offset_springs"), device),
     )
     out_state = SceneState(
         particles=_named(ParticleState, state["particles"], device),

@@ -1,5 +1,5 @@
-"""Scene builders: sampled parameters -> engine state/spec. The rope and
-granular builders of adaptigraph_tpu/scenes/build.py.
+"""Scene builders: sampled parameters -> engine state/spec. The rope,
+granular and cloth builders of adaptigraph_tpu/scenes/build.py.
 
 Construction is host-side numpy, run once per episode; the result goes to
 `device` once at the end. The same RandomState gives the same arrays as
@@ -14,6 +14,9 @@ the JAX builder.
     (disjoint contiguous index ranges, so the segment cluster pass); no
     self-collision, no global cluster. A capacity cap drops the remaining
     granules and stamps the count as `truncated_granules`.
+  * cloth: a dimx x dimz particle grid in the xz plane with stretch, bend
+    and shear distance springs (attach_incidence turns them into six
+    static-offset families); every particle self-collides; no clusters.
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ import torch
 
 from adaptigraph_torch.engine.state import (
     SHAPE_PLANE, SceneSpec, SceneState, ShapeSet, build_cluster_incidence,
-    build_cluster_matmul, build_cluster_segments, empty_springs,
-    fold_global_cluster, make_clusters, make_params, make_particles,
-    make_shapes, trim_cluster_matmul)
+    build_cluster_matmul, build_cluster_segments, build_spring_incidence,
+    empty_clusters, empty_springs, fold_global_cluster, make_clusters,
+    make_params, make_particles, make_shapes, make_springs,
+    springs_to_offset_families, trim_cluster_matmul)
+from adaptigraph_torch.scenes.mesh import import_obj, sample_mesh
 from adaptigraph_torch.scenes.samplers import sample_scene
 from adaptigraph_torch.utils.device import resolve_device
 
@@ -62,6 +67,7 @@ MATERIAL_CAPS = {
     # k=1024: a granule blob voxel-samples at most a 10^3 grid at the
     # sampler's largest granular_scale
     "granular": Caps(n=32768, s=0, c=768, k=1024, m=8),
+    "cloth": Caps(n=4900, s=30720, c=0, k=0, m=8),
 }
 
 
@@ -119,16 +125,29 @@ def _rot_y(deg):
 
 
 def build_rope(scene: dict, rng: np.random.RandomState, caps: Caps, device):
-    if scene.get("mesh_path"):
-        raise NotImplementedError(
-            "the OBJ-driven rope waits for scenes/mesh.py, ROADMAP Queue 1 "
-            "item 7")
     radius = scene["radius"]
     # world dimensions of the reference's rope.obj scaled by
     # [length, 3, 3] * 50 * radius
     length_world = scene["length"] * 50 * radius
     rope_radius_world = 0.0329 * (3.0 * 50 * radius) / 2
-    pts = _cylinder_lattice(length_world, rope_radius_world, spacing=radius)
+    if scene.get("mesh_path"):
+        # the OBJ-driven rope: the mesh normalized to unit extent, scaled
+        # to the world dimensions, centred, then volume-sampled at the
+        # particle radius
+        m = import_obj(scene["mesh_path"]).normalized()
+        lo, hi = m.bounds
+        ext = hi - lo
+        scale = np.array([length_world / max(ext[0], 1e-6),
+                          2 * rope_radius_world / max(ext[1], 1e-6),
+                          2 * rope_radius_world / max(ext[2], 1e-6)],
+                         np.float32)
+        m = m.scaled(scale)
+        lo, hi = m.bounds
+        m = m.translated(-(lo + hi) / 2)
+        pts = sample_mesh(m, radius)
+    else:
+        pts = _cylinder_lattice(length_world, rope_radius_world,
+                                spacing=radius)
     if len(pts) > caps.n:
         # cap overflow drops tail x-slices (a slightly shorter rope),
         # stamped into property_params by build_scene
@@ -264,11 +283,105 @@ def build_granular(scene: dict, rng: np.random.RandomState, caps: Caps,
     return particles, spec, len(pts)
 
 
+def build_cloth(scene: dict, rng: np.random.RandomState, caps: Caps, device):
+    radius = scene["radius"]
+    dimx, dimz = scene["dimx"], scene["dimz"]
+    xs, zs = np.meshgrid(np.arange(dimx), np.arange(dimz), indexing="xy")
+    # the grid lies in the xz plane
+    pts = np.stack([xs.ravel() * radius, np.zeros(dimx * dimz),
+                    zs.ravel() * radius], 1)
+    pts = (pts + scene["origin"]).astype(np.float32)
+
+    def gid(x, z):
+        return z * dimx + x
+
+    sidx, srest, sstiff = [], [], []
+
+    def add(a, b, stiff):
+        sidx.append((a, b))
+        srest.append(np.linalg.norm(pts[a] - pts[b]))
+        sstiff.append(stiff)
+
+    for z in range(dimz):
+        for x in range(dimx):
+            if x > 0:
+                add(gid(x, z), gid(x - 1, z), scene["stretch_stiffness"])
+            if x > 1:
+                add(gid(x, z), gid(x - 2, z), scene["bend_stiffness"])
+            if z > 0 and x < dimx - 1:
+                add(gid(x, z), gid(x + 1, z - 1), scene["shear_stiffness"])
+            if z > 0 and x > 0:
+                add(gid(x, z), gid(x - 1, z - 1), scene["shear_stiffness"])
+            if z > 0:
+                add(gid(x, z), gid(x, z - 1), scene["stretch_stiffness"])
+            if z > 1:
+                add(gid(x, z), gid(x, z - 2), scene["bend_stiffness"])
+    springs = make_springs(np.array(sidx), np.array(srest), np.array(sstiff),
+                           capacity=caps.s, device=device)
+
+    inv_mass = np.full(len(pts), dimx * dimz / scene["cloth_mass"],
+                       dtype=np.float32)
+    particles = make_particles(pts, inv_mass=inv_mass, group=0,
+                               self_collide=True, n_max=caps.n, device=device)
+    rest_pos = np.zeros((caps.n, 3), dtype=np.float32)
+    rest_pos[: len(pts)] = pts
+    eff_radius = radius * scene["radius_scale"]
+    params = make_params(
+        device,
+        radius=eff_radius,
+        solid_rest_distance=eff_radius,
+        collision_distance=scene["collision_distance"],
+        shape_collision_margin=scene["shape_collision_margin"],
+        dynamic_friction=scene["dynamic_friction"],
+        static_friction=scene["static_friction"],
+        particle_friction=scene["particle_friction"],
+        damping=scene["damping"],
+        sleep_threshold=scene["sleep_threshold"],
+        relaxation_factor=scene["relaxation_factor"],
+        collide_filter_dist=eff_radius,
+    )
+    spec = SceneSpec(
+        springs=springs,
+        clusters=empty_clusters(caps.c, caps.k, device=device),
+        global_stiffness=torch.zeros((), dtype=torch.float32, device=device),
+        global_rest=torch.zeros((0, 3), dtype=torch.float32, device=device),
+        rest_pos=torch.as_tensor(rest_pos, device=device),
+        params=params,
+    )
+    return particles, spec, len(pts)
+
+
 def attach_incidence(spec: SceneSpec, n: int) -> SceneSpec:
-    """The cluster topology tables: the per-particle incidence table; the
-    contiguous-segment form when every cluster is a disjoint contiguous
-    range (granular); else the membership-matrix pass when the matrix fits
-    (C * N <= 8M; the rope's overlapping ball cover)."""
+    """The topology tables of the solver's gather passes, in the JAX
+    package's order:
+    1. springs whose index offsets form static families (cloth grid,
+       chains) become OffsetSprings;
+    2. the springs left over get a per-particle incidence table;
+    3. clusters get the per-particle incidence table; the contiguous-segment
+       form when every cluster is a disjoint contiguous range (granular);
+       else the membership-matrix pass when the matrix fits (C * N <= 8M;
+       the rope's overlapping ball cover).
+    Topology only: the constraints are unchanged."""
+    device = spec.rest_pos.device
+    if spec.offset_springs is None and spec.springs.idx.shape[0] > 0:
+        sv = spec.springs.valid.cpu().numpy()
+        if sv.any():
+            idx = spec.springs.idx.cpu().numpy()[sv]
+            rest = spec.springs.rest.cpu().numpy()[sv]
+            stiff = spec.springs.stiffness.cpu().numpy()[sv]
+            fams, leftover = springs_to_offset_families(idx, rest, stiff, n,
+                                                        device=device)
+            if fams is not None:
+                spec = spec._replace(offset_springs=fams)
+                if leftover.any():
+                    spec = spec._replace(springs=make_springs(
+                        idx[leftover], rest[leftover], stiff[leftover],
+                        device=device))
+                else:
+                    spec = spec._replace(springs=empty_springs(0, device))
+    if spec.spring_inc is None and spec.springs.idx.shape[0] > 0:
+        spec = spec._replace(
+            spring_inc=build_spring_incidence(spec.springs, n))
     c, k = spec.clusters.member.shape
     if c == 0 or k == 0:
         return spec
@@ -286,7 +399,8 @@ def attach_incidence(spec: SceneSpec, n: int) -> SceneSpec:
     return spec
 
 
-_BUILDERS = {"rope": build_rope, "granular": build_granular}
+_BUILDERS = {"rope": build_rope, "granular": build_granular,
+             "cloth": build_cloth}
 
 
 def build_scene(material: str, rng: np.random.RandomState,
@@ -298,7 +412,7 @@ def build_scene(material: str, rng: np.random.RandomState,
     a lone floor plane is used. `scene_overrides` patches sampled scene
     parameters."""
     device = resolve_device(device)
-    scene, props = sample_scene(material, rng)  # raises for unported ones
+    scene, props = sample_scene(material, rng)
     caps = caps or MATERIAL_CAPS[material]
     if scene_overrides:
         scene.update(scene_overrides)

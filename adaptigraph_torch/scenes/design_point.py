@@ -13,11 +13,28 @@ granules, at the capacities SimEnv picks (sim/env.py's bucketing: the
 its tool speed. Its dense band: RandomState(3) at a 2,048 cap (1,866
 particles in 8 granules), the scene the JAX package's granular
 friction-band test runs.
+
+The cloth design point: the cloth sampler's draw for RandomState(0), a
+70 x 70 = 4,900-particle sheet at the material's capacities
+(Caps(n=4900, s=30720, c=0, k=0, m=8)), 4 substeps x 50 iterations. Its
+28,702 springs become six offset families (offsets 1, 2, 69, 70, 71 and
+140) with nothing left over. The sheet starts CLOTH_GAP above the floor plane
+(an origin override of y), so it lands within the first frames (a 0.095
+fall to the 0.005 contact offset: about 9 frames). The box is the rope
+design point's pusher (half extents 0.05, 0.4, 0.8) at y = 0.35, centred
+on the sheet in z, its face 0.05 before the sheet's edge along x at frame
+0 and moving +x at BOARD_SPEED (cloth_sweep), so it meets the landed
+sheet's edge at about frame 15. Shapes run unfused, as SimEnv runs them by
+default, so K4 is not on this path. At 4,900 particles auto_contact_mode
+picks `block`: tile_j 128, 39 row tiles, lists of up to 39 blocks (maxb
+39); every particle self-collides, so the rest filter is on. A frame
+launches K1 200 times and K2 once.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from adaptigraph_torch.engine.state import SHAPE_BOX, SHAPE_PLANE, make_shapes
 from adaptigraph_torch.scenes.build import (
@@ -39,13 +56,16 @@ BOARD_HALF = (0.5, 0.3, 0.04)  # SimEnv's granular tool: a flat board
 # (adaptigraph_tpu/configs/data_gen/granular.yaml, sim/env.py:70), 0.2 m/s at 60 frames/s
 BOARD_SPEED = 1.0 / 300
 BOARD_GAP = 0.05  # the board's face before the pile's near face at frame 0
+PUSHER_HALF = (0.05, 0.4, 0.8)  # the rope and cloth design points' box
+CLOTH_GAP = 0.1  # the cloth sheet's height above the floor at frame 0
+CLOTH_PUSHER_Y = 0.35
 
 
 def rope_design_point(device=None, lifted: bool = True) -> SceneBuild:
     device = resolve_device(device)
     caps = Caps(n=N_CAP, s=0, c=1024, k=640, m=2)
     shapes = make_shapes([SHAPE_PLANE, SHAPE_BOX],
-                         [[0, 0, 0], [0.05, 0.4, 0.8]],
+                         [[0, 0, 0], list(PUSHER_HALF)],
                          [[0, 0, 0], [0, 0.4, 0]],
                          [[0, 0, 0, 1], [0, 0, 0, 1]], m_max=caps.m,
                          device=device)
@@ -131,5 +151,40 @@ def board_sweep(b: SceneBuild, t: int):
     pos_traj[:, slot, 1] = TABLE_TOP + BOARD_HALF[1] + 0.01
     z0 = pts[:, 2].min() - BOARD_HALF[2] - BOARD_GAP
     pos_traj[:, slot, 2] = z0 + BOARD_SPEED * np.arange(t, dtype=np.float32)
+    quat_traj = np.tile(st.shapes.quat.cpu().numpy()[None], (t, 1, 1))
+    return pos_traj.astype(np.float32), quat_traj.astype(np.float32)
+
+
+def cloth_design_point(device=None) -> SceneBuild:
+    """The cloth design point (module docstring), with the box at its
+    first pose of cloth_sweep (no jump at frame 0)."""
+    device = resolve_device(device)
+    caps = MATERIAL_CAPS["cloth"]
+    shapes = make_shapes([SHAPE_PLANE, SHAPE_BOX],
+                         [[0, 0, 0], list(PUSHER_HALF)],
+                         [[0, 0, 0], [0, 20.0, 0]],
+                         [[0, 0, 0, 1], [0, 0, 0, 1]], m_max=caps.m,
+                         device=device)
+    b = build_scene("cloth", np.random.RandomState(0), shapes=shapes,
+                    caps=caps, device=device,
+                    scene_overrides={"origin": np.array([-0.5, CLOTH_GAP,
+                                                         0.0])})
+    start = torch.as_tensor(cloth_sweep(b, 1)[0][0], device=device)
+    return b._replace(state=b.state._replace(
+        shapes=b.state.shapes._replace(pos=start, prev_pos=start)))
+
+
+def cloth_sweep(b: SceneBuild, t: int):
+    """The box's trajectory over t frames: at y = CLOTH_PUSHER_Y, centred
+    on the sheet in z, its face 0.05 before the sheet's edge along x at
+    frame 0, moving +x at BOARD_SPEED a frame. Returns numpy
+    (pos (t, M, 3), quat (t, M, 4))."""
+    st = b.state
+    pts = st.particles.pos[: b.n_active].cpu().numpy()
+    pos_traj = np.tile(st.shapes.pos.cpu().numpy()[None], (t, 1, 1))
+    x0 = pts[:, 0].min() - PUSHER_HALF[0] - 0.05
+    pos_traj[:, 1, 0] = x0 + BOARD_SPEED * np.arange(t, dtype=np.float32)
+    pos_traj[:, 1, 1] = CLOTH_PUSHER_Y
+    pos_traj[:, 1, 2] = 0.5 * (pts[:, 2].min() + pts[:, 2].max())
     quat_traj = np.tile(st.shapes.quat.cpu().numpy()[None], (t, 1, 1))
     return pos_traj.astype(np.float32), quat_traj.astype(np.float32)

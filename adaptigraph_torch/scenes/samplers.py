@@ -1,5 +1,5 @@
-"""Per-episode physics randomization: the rope and granular samplers of
-adaptigraph_tpu/scenes/samplers.py, host-side numpy. The same
+"""Per-episode physics randomization: the rope, granular and cloth
+samplers of adaptigraph_tpu/scenes/samplers.py, host-side numpy. The same
 RandomState gives the same dicts as the JAX package's sampler."""
 
 from __future__ import annotations
@@ -104,16 +104,57 @@ def granular_scene(rng: np.random.RandomState):
     return scene, props
 
 
-_SAMPLERS = {"rope": rope_scene, "granular": granular_scene}
-_LATER = ("cloth",)
+def cloth_scene(rng: np.random.RandomState):
+    radius = 0.03
+    dimx = dimz = 70
+    sf = rng.rand()
+    stiffness_factor = sf * 1.4 + 0.1
+    stretch = float(np.clip(stiffness_factor, 1.0, 1.5))
+    bend = stiffness_factor
+    shear = stiffness_factor
+    dynamic_friction = -sf * 0.9 + 1.0  # inversely coupled to stiffness
+
+    scene = {
+        "material": "cloth",
+        "radius": radius,
+        "dimx": dimx,
+        "dimz": dimz,
+        "origin": np.array([-0.5, 1.0, 0.0]),
+        "stretch_stiffness": stretch,
+        "bend_stiffness": bend,
+        "shear_stiffness": shear,
+        "cloth_mass": 0.1,
+        "dynamic_friction": dynamic_friction,
+        "static_friction": 0.0,
+        "particle_friction": 0.0,
+        # solver schedule: 4 substeps x 50 iterations
+        "substeps": 4,
+        "iterations": 50,
+        "radius_scale": 1.8,
+        "damping": 1.0,
+        "sleep_threshold": 0.02,
+        "relaxation_factor": 1.0,
+        "collision_distance": 0.005,
+        "shape_collision_margin": 0.04,
+    }
+    props = {
+        "particle_radius": radius,
+        "stretch_stiffness": stretch,
+        "bend_stiffness": bend,
+        "shear_stiffness": shear,
+        "dynamic_friction": dynamic_friction,
+        "sf": sf,
+    }
+    return scene, props
+
+
+_SAMPLERS = {"rope": rope_scene, "granular": granular_scene,
+             "cloth": cloth_scene}
 
 
 def sample_scene(material: str, rng: np.random.RandomState):
-    if material in _LATER:
-        raise NotImplementedError(
-            f"the {material} sampler waits for ROADMAP Queue 1 item 7")
     try:
         return _SAMPLERS[material](rng)
     except KeyError:
         raise ValueError(f"unknown material {material!r}; choose from "
-                         f"{sorted(_SAMPLERS) + list(_LATER)}") from None
+                         f"{sorted(_SAMPLERS)}") from None

@@ -48,8 +48,7 @@ import torch
 
 from adaptigraph_torch.engine import contact_kernels as ck
 from adaptigraph_torch.engine.solver import (
-    _shape_table, auto_tile_j, frame_block_lists, pack_tables_for,
-    rollout_steps)
+    _shape_table, auto_tile_j, frame_block_lists, rollout_steps)
 from adaptigraph_torch.kernels import build
 from adaptigraph_torch.scenes import design_point as dp
 from adaptigraph_torch.tools.profile_frame import profiled
@@ -97,7 +96,9 @@ def _sweep_inputs(state, spec, tile_j, rest_filter, dev):
     """K1's and K2's inputs at a frame's start, as xpbd_step builds them,
     with K1's lists refined by K2's plain version."""
     p, prm, sh = state.particles, spec.params, state.shapes
-    rows, cols = pack_tables_for(p, spec, tile_j)
+    rows, cols = ck.pack_contact_tables(p.pos, p.pos, p.group, p.inv_mass,
+                                        p.self_collide, p.active,
+                                        spec.rest_pos, tile_j=tile_j)
     s_vel = (sh.pos - sh.prev_pos) / prm.dt
     idx, cnt, _, keep = frame_block_lists(p, spec, s_vel, tile_j)
     ridx, rcnt = ck.refine_blocks_plain(rows, cols, keep,

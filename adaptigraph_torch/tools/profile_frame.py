@@ -6,12 +6,16 @@
 Drives rollout_steps on a design point of scenes.design_point (`rope`: the
 rope lifted so it moves, the pusher's 200-frame sweep; `granular`: the 27k
 granular point with the shapes fused into the sweep, the board's sweep;
-`granular_dense`: the dense band, the same sweep) and profiles
-a few frames with torch.profiler after running the frames before them.
+`granular_dense`: the dense band, the same sweep; `cloth`: the 4,900-
+particle sheet, the box's sweep, from frame 16 by default, the box then
+pushing the landed sheet) and profiles a few frames with torch.profiler
+after running the frames before them.
 Prints one JSON line: wall ms per frame, device busy ms per frame
 (the sum of kernel times; one stream, so kernels do not overlap), the
 device idle share, kernel launches per frame, and the kernels with the most
-device time. Optionally writes a Chrome trace. Needs a CUDA device.
+device time, and the launches and device time of one call of each
+iteration pass outside the contact kernels (the unfused shape pass, the
+offset-family spring pass) at the first profiled frame's positions. Optionally writes a Chrome trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ def _scene(name: str, dev, frames: int):
         return b, dp.board_sweep(b, frames), dict(
             rest_filter=False,
             n_shapes_active=int(b.state.shapes.kind.shape[0]))
+    if name == "cloth":
+        b = dp.cloth_design_point(dev)
+        return b, dp.cloth_sweep(b, frames), {}
     b = dp.granular_dense_point(dev)
     return b, dp.board_sweep(b, frames), {}
 
@@ -78,18 +85,46 @@ def profiled(fn, frames: int) -> dict:
             "profile": prof}
 
 
+def pass_profiles(b, st) -> dict:
+    """Kernel launches and device ms of one call of each iteration pass
+    outside the contact kernels, on the state's positions."""
+    from adaptigraph_torch.engine.collisions import shape_contact_deltas
+    from adaptigraph_torch.engine.solver import _spring_deltas_offset
+
+    spec, prm, p, sh = b.spec, b.spec.params, st.particles, st.shapes
+    s_vel = (sh.pos - sh.prev_pos) / prm.dt
+    passes = {"shape_pass": lambda: shape_contact_deltas(
+        p.pos, p.pos, sh, sh.pos, sh.quat, s_vel, prm.collision_distance,
+        prm.shape_collision_margin, prm.dynamic_friction,
+        prm.dt / b.substeps)}
+    if spec.offset_springs is not None:
+        passes["offset_springs"] = lambda: _spring_deltas_offset(
+            p.pos, p.inv_mass, spec.offset_springs)
+    out = {}
+    for name, fn in passes.items():
+        fn()  # warm-up
+        r = profiled(fn, 1)
+        out[name] = {"launches_per_call": r["kernel_launches_per_frame"],
+                     "device_ms_per_call": r["device_busy_ms_per_frame"],
+                     "wall_ms_per_call": r["wall_ms_per_frame"]}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default="rope",
-                    choices=("rope", "granular", "granular_dense"))
+                    choices=("rope", "granular", "granular_dense", "cloth"))
     ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--start", type=int, default=90,
-                    help="first profiled frame of the sweep")
+    ap.add_argument("--start", type=int, default=None,
+                    help="first profiled frame of the sweep (default 90; "
+                         "cloth 16)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
     dev = torch.device("cuda")
+    if args.start is None:
+        args.start = 16 if args.scene == "cloth" else 90
     b, (pos_traj, quat_traj), kw = _scene(args.scene, dev,
                                           args.start + args.frames)
     st, _ = rollout_steps(b.state, b.spec, pos_traj[:args.start],
@@ -100,6 +135,7 @@ def main(argv=None):
         st, b.spec, pos_traj[sl], quat_traj[sl], b.substeps, b.iterations,
         record=False, **kw), args.frames)
     prof = res.pop("profile")
+    res["passes"] = pass_profiles(b, st)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "scene": args.scene,
         "frames": args.frames, "first_frame": args.start, **res}),

@@ -3,22 +3,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from adaptigraph_torch/kernels/csrc with
-nvcc and drives the simulator frame through rollout_steps on three paths:
+nvcc and drives the simulator frame through rollout_steps on five paths:
 the rope at its 5,120-particle design point (2 substeps x 4 iterations, a
-box pusher sweeping through the rope; K1 and K2), the granular design
-point (26,982 particles in a 32,768 cap, 12 substeps x 6 iterations, the
-board pushing the pile, shapes fused into the sweep; K1 with K4, and K2)
-and the granular dense band (1,866 particles; K3). It holds each kernel
-against its plain PyTorch version (and K1 over full lists against K3;
-K2 also on its edge cases: the design point after landing, a rope
-whose blocks are all pruned, and synthetic lists with empty and full
-rows and stale slots), checks that two launches of each kernel on the
-same inputs give the same bits, and holds frames on the card against
-frames on the CPU. Each phase prints one JSON line. The last lines are
+box pusher sweeping through the rope; K1 and K2), the same rope in the
+sparse contact mode (its neighbor list from the hashed cell list; no
+contact kernel), the granular design point (26,982 particles in a 32,768
+cap, 12 substeps x 6 iterations, the board pushing the pile, shapes fused
+into the sweep; K1 with K4, and K2), the granular dense band (1,866
+particles; K3) and the cloth design point (4,900 particles, 4 substeps x
+50 iterations, the sheet landing and the box pushing its edge; K1 200
+times and K2 once a frame). It holds each kernel against its plain
+PyTorch version (and K1 over full lists against K3; K2 also on its edge
+cases: the design point after landing, a rope whose blocks are all
+pruned, and synthetic lists with empty and full rows and stale slots; K1
+and K2 on the cloth's frames), checks that two launches of each kernel on
+the same inputs give the same bits, and holds frames on the card against
+frames on the CPU (on the cloth, card frames with the springs or the
+shapes left out must fail that gate). Each phase prints one JSON line. The last lines are
 the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
-once. Imports the standard library, numpy, torch and adaptigraph_torch only.
+once. Imports the standard library, numpy, torch and adaptigraph_torch
+only.
 """
 
 from __future__ import annotations
@@ -54,10 +60,29 @@ FRAME_ATOL = 1e-4  # card vs CPU positions, 3 frames from the built scene
 # the median particle to 1e-5, every particle to a tenth of the contact
 # distance
 CONTACT_MEDIAN_ATOL, CONTACT_MAX_FRAC = 1e-5, 0.1
-# the granular windows with contacts: the median particle to this many
-# times the CPU's own median spread under a 1e-6 nudge of its input (see
-# the granular_frame_agreement phase)
-GRANULAR_MEDIAN_X_NUDGED = 3.0
+# the granular and cloth windows with contacts: the median particle to
+# this many times the CPU's own median spread under a 1e-6 nudge of its
+# input (see the granular_frame_agreement and cloth_frame_agreement
+# phases)
+MEDIAN_X_NUDGED = 3.0
+T_CLOTH = 24  # cloth design point frames: the sheet lands at frame 8, the
+#               box meets its edge at about frame 15 and has pushed it
+#               about 0.03 along x at the end
+T_CLOTH_LANDED = 12  # the cloth's kernel checks: a frame after landing
+CLOTH_DESIGN = {"n_active": 4900, "offsets": (1, 70, 69, 71, 2, 140),
+                "tile_j": 128, "blocks": (39, 39)}
+# the landed sheet has no particle contacts (its unfiltered pairs sit at
+# 1.11x the contact distance): K1 is also held on the frame's inputs with
+# x and z jittered by up to this much, which brings pairs into contact
+CLOTH_JITTER = 0.01
+# the cloth window is one frame, the box pushing the landed sheet: the
+# median particle to MEDIAN_X_NUDGED times the CPU's nudged median spread,
+# every particle to MAX_X_NUDGED times the CPU's nudged max spread. On a
+# CPU the nudge moved the median particle by 0.1e-6 to 0.9e-6 (frames
+# 16-22) and the most-moved one by 4e-6 to 8e-5, where the box moves
+# 3.3e-3 a frame (BOARD_SPEED)
+MAX_X_NUDGED = 10.0
+T_SPARSE = 6  # the rope at 5,120 particles in sparse mode (the cell list)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
@@ -160,27 +185,36 @@ def event_ms(fn, reps, warm=3):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_inputs(state, spec, tile_j, granular_groups=False):
+def block_tables(p, spec, tile_j):
+    """The block sweep's contact tables of particles `p` at `tile_j`."""
+    from adaptigraph_torch.engine import contact_kernels as ck
+
+    return ck.pack_contact_tables(p.pos, p.pos, p.group, p.inv_mass,
+                                  p.self_collide, p.active, spec.rest_pos,
+                                  tile_j=tile_j)
+
+
+def kernel_inputs(state, spec, tile_j, granular_groups=False, substeps=2):
     """The mid-push frame's inputs to K2 and K1, built as xpbd_step builds
     them: tables, AABB block lists and keep distance at the frame start,
     then the positions the first solver iteration sees (one substep of
-    free flight). `granular_groups` gives every 128 particles (one row
-    tile) a group of its own, as a granular scene gives every granule one,
-    so that the kernels' rest_filter=False form, which the rope never
-    takes, meets contacts: between tiles only, so K2 keeps a tile's
-    neighbour blocks and drops its own, and its compaction reorders."""
+    free flight, a frame of `substeps`). `granular_groups` gives every 128
+    particles (one row tile) a group of its own, as a granular scene gives
+    every granule one, so that the kernels' rest_filter=False form, which
+    the rope never takes, meets contacts: between tiles only, so K2 keeps
+    a tile's neighbour blocks and drops its own, and its compaction
+    reorders."""
     from adaptigraph_torch.engine import contact_kernels as ck
-    from adaptigraph_torch.engine.solver import (
-        frame_block_lists, pack_tables_for)
+    from adaptigraph_torch.engine.solver import frame_block_lists
 
     p, prm, sh = state.particles, spec.params, state.shapes
     if granular_groups:
         grp = torch.arange(p.pos.shape[0], device=p.pos.device) // 128
         p = p._replace(group=grp.to(torch.int32))
-    rows, cols = pack_tables_for(p, spec, tile_j)
+    rows, cols = block_tables(p, spec, tile_j)
     s_vel = (sh.pos - sh.prev_pos) / prm.dt
     idx, cnt, overflow, keep = frame_block_lists(p, spec, s_vel, tile_j)
-    dt = prm.dt / 2
+    dt = prm.dt / substeps
     mov = ((p.inv_mass > 0) & p.active).to(torch.float32)[:, None]
     vel = p.vel.clone()
     vel[:, 1] += prm.gravity * dt
@@ -404,7 +438,7 @@ def granular_phases(dev, lib):
         shape_contact_deltas, shape_sdf)
     from adaptigraph_torch.engine.solver import (
         _shape_table, auto_contact_mode, auto_tile_j, frame_block_lists,
-        pack_tables_for, rollout_steps)
+        rollout_steps)
     from adaptigraph_torch.engine.state import tree_to
     from adaptigraph_torch.kernels import build
     from adaptigraph_torch.scenes import design_point as dp
@@ -503,7 +537,7 @@ def granular_phases(dev, lib):
     prm = spec.params
     sh = final.shapes
     s_vel = (sh.pos - sh.prev_pos) / prm.dt
-    rows, cols = pack_tables_for(fp, spec, tj)
+    rows, cols = block_tables(fp, spec, tj)
     idx, cnt, _, keep = frame_block_lists(fp, spec, s_vel, tj)
     k2_args = (rows, cols, keep, prm.collide_filter_dist, idx, cnt)
     ridx, rcnt = ck.refine_blocks_plain(*k2_args, rest_filter=rest_filter,
@@ -662,7 +696,7 @@ def granular_phases(dev, lib):
     # update multiplies position rounding by 720, so a 1e-6 nudge of the
     # CPU's own input moves its output by a median of ~1e-5
     # (tests/test_torch_granular.py); the median particle to
-    # GRANULAR_MEDIAN_X_NUDGED times that nudged median, measured here on
+    # MEDIAN_X_NUDGED times that nudged median, measured here on
     # the same window, and every particle to CONTACT_MAX_FRAC of the
     # contact distance.
     _phase[0] = "granular_frame_agreement"
@@ -738,7 +772,7 @@ def granular_phases(dev, lib):
             "seconds": time.perf_counter() - t0}
         if not free <= FRAME_ATOL:
             failed.append(f"{name} free fall")
-        median_atol = GRANULAR_MEDIAN_X_NUDGED * float(spread.median())
+        median_atol = MEDIAN_X_NUDGED * float(spread.median())
         r[f"contact_frames_{T_DENSE}_{T_DENSE + 2}"]["median_atol"] = (
             median_atol)
         if not (float(per_particle.median()) <= median_atol
@@ -746,7 +780,7 @@ def granular_phases(dev, lib):
             failed.append(f"{name} contact window")
     emit({"phase": "granular_frame_agreement", "frames": 3,
           "free_fall_atol": FRAME_ATOL,
-          "contact_median_atol": f"{GRANULAR_MEDIAN_X_NUDGED} x the nudged "
+          "contact_median_atol": f"{MEDIAN_X_NUDGED} x the nudged "
                                  f"median",
           "contact_max_atol": float(CONTACT_MAX_FRAC * 0.03), **report})
     if failed:
@@ -917,6 +951,361 @@ def granular_phases(dev, lib):
                       "near_pairs": near2_landed, "bytes": k2_bytes,
                       "ops": DETECT_OPS * near2_landed}}
     return out
+
+
+def jittered(state, amp, seed=0):
+    """`state` with its particles moved by up to `amp` along x and z."""
+    p = state.particles
+    noise = np.random.RandomState(seed).uniform(-amp, amp, tuple(p.pos.shape))
+    noise[:, 1] = 0.0
+    return state._replace(particles=p._replace(pos=p.pos + torch.as_tensor(
+        noise, dtype=torch.float32, device=p.pos.device)))
+
+
+def nudged(state, seed=1):
+    """`state` with its positions moved by 1e-6 times a normal draw."""
+    p = state.particles
+    noise = np.random.RandomState(seed).randn(*p.pos.shape) * 1e-6
+    return state._replace(particles=p._replace(pos=p.pos + torch.as_tensor(
+        noise, dtype=torch.float32, device=p.pos.device)))
+
+
+def cloth_phases(dev, lib):
+    """The cloth design point on the card: the path through rollout_steps,
+    K1 and K2 against their plain versions on its inputs, card frames
+    against CPU frames, and K1's and K2's times. Returns what the kernel
+    table needs."""
+    from adaptigraph_torch.engine import contact_kernels as ck
+    from adaptigraph_torch.engine.solver import (
+        auto_contact_mode, auto_tile_j, frame_block_lists, rollout_steps)
+    from adaptigraph_torch.engine.state import tree_to
+    from adaptigraph_torch.kernels import build
+    from adaptigraph_torch.scenes import design_point as dp
+
+    out = {}
+    _phase[0] = "cloth_scene"
+    t0 = time.perf_counter()
+    c = dp.cloth_design_point(dev)
+    spec, prm = c.spec, c.spec.params
+    cp = c.state.particles
+    n = cp.pos.shape[0]
+    tj = auto_tile_j(n)
+    rest_filter = bool(cp.self_collide[: c.n_active].any())
+    sh = c.state.shapes
+    idx0, _, ov0, _ = frame_block_lists(cp, spec, (sh.pos - sh.prev_pos)
+                                        / prm.dt, tj)
+    fam = spec.offset_springs
+    info = {"phase": "cloth_scene", "n_active": c.n_active, "cap": n,
+            "contact_mode": auto_contact_mode(n), "tile_j": tj,
+            "rest_filter": rest_filter, "blocks": list(idx0.shape),
+            "offsets": list(fam.offsets),
+            "family_springs": int(fam.valid.sum()),
+            "springs_left_over": int(spec.springs.idx.shape[0]),
+            "substeps": c.substeps, "iterations": c.iterations,
+            "seconds": time.perf_counter() - t0}
+    ok = (c.n_active == n == CLOTH_DESIGN["n_active"]
+          and tuple(fam.offsets) == CLOTH_DESIGN["offsets"]
+          and auto_contact_mode(n) == "block" and tj == CLOTH_DESIGN["tile_j"]
+          and tuple(idx0.shape) == CLOTH_DESIGN["blocks"] and rest_filter
+          and info["springs_left_over"] == 0 and int(ov0) == 0
+          and (c.substeps, c.iterations) == (4, 50))
+    emit({**info, "ok": ok})
+    if not ok:
+        raise RuntimeError("the cloth design point is not as expected")
+
+    # the path: rollout_steps, the shapes unfused (SimEnv's default)
+    _phase[0] = "cloth_path"
+    ptj, qtj = dp.cloth_sweep(c, T_CLOTH + 1)
+    rollout_steps(c.state, spec, ptj[:1], qtj[:1], c.substeps, c.iterations,
+                  record=False)  # warm-up
+
+    def path():  # in two calls, to keep the state of a landed frame
+        landed, _ = rollout_steps(c.state, spec, ptj[:T_CLOTH_LANDED],
+                                  qtj[:T_CLOTH_LANDED], c.substeps,
+                                  c.iterations, record=False)
+        return landed, rollout_steps(
+            landed, spec, ptj[T_CLOTH_LANDED:T_CLOTH],
+            qtj[T_CLOTH_LANDED:T_CLOTH], c.substeps, c.iterations,
+            record=False)[0]
+
+    reset_counts()
+    (landed, final), secs = sync_time(path)
+    counts = read_counts()
+    iters = c.substeps * c.iterations
+    fpos = final.particles.pos
+    overflow = int(final.contact_overflow)
+    finite = bool(torch.isfinite(fpos).all())
+    lowest = float(fpos[:, 1].min())
+    pushed = int(((fpos - cp.pos)[:, 0] > 0.01).sum())
+    emit({"phase": "cloth_path", "frames": T_CLOTH, "seconds": secs,
+          "frames_per_s": T_CLOTH / secs, "ms_per_frame": 1e3 * secs / T_CLOTH,
+          "launches": counts,
+          "launches_per_frame": {k: v / T_CLOTH for k, v in counts.items()},
+          "contact_overflow": overflow, "finite": finite,
+          "lowest_particle_y": lowest,
+          "particles_pushed_0.01_along_x": pushed,
+          "max_displacement": float((fpos - cp.pos).abs().max())})
+    if (counts["k1"] != iters * T_CLOTH or counts["k2"] != T_CLOTH
+            or counts["k3"] != 0 or counts["k4"] != 0
+            or counts["unfused_shape_pass"] != iters * T_CLOTH
+            or overflow != 0 or not finite or pushed == 0
+            or not 0.0 < lowest < 2 * float(prm.collision_distance)):
+        raise RuntimeError("cloth path check failed")
+    out["counts"] = counts
+
+    # K2 and K1 against their plain versions: a landed frame, the last
+    # frame (the box pushing), and the last frame jittered into contact
+    _phase[0] = "cloth_kernel_check"
+    cases, k1_err, inputs = [], 0.0, {}
+    kw = dict(rest_filter=rest_filter, tile_j=tj)
+    for name, st in (("landed", landed), ("pushed", final),
+                     ("pushed_jittered", jittered(final, CLOTH_JITTER))):
+        a = kernel_inputs(st, spec, tj, substeps=c.substeps)
+        k2_args = (a["rows"], a["cols"], a["keep"], prm.collide_filter_dist,
+                   a["idx"], a["cnt"])
+        ki, kc = ck.refine_overlap_blocks_packed(n, *k2_args, **kw)
+        pi, pc = ck.refine_blocks_plain(*k2_args, **kw)
+        k1_args = (n, a["rows1"], a["cols1"], prm.solid_rest_distance,
+                   prm.particle_friction, prm.collide_filter_dist, pi, pc)
+        kd, kcnt = ck.block_sparse_contact_deltas_packed(*k1_args, **kw)
+        pd, pcnt = ck.block_sparse_contact_plain(*k1_args, **kw)
+        err = float((kd - pd).abs().max())
+        k1_err = max(k1_err, err)
+        cases.append({
+            "frame": name, "keep_dist": float(a["keep"]),
+            "listed": int(a["cnt"].sum()), "kept": int(pc.sum()),
+            "k2_equal": bool(torch.equal(ki, pi) and torch.equal(kc, pc)),
+            "k2_repeats_bitwise": repeats(
+                lambda: ck.refine_overlap_blocks_packed(n, *k2_args, **kw)),
+            "k1_counts_equal": bool(torch.equal(kcnt, pcnt)),
+            "k1_max_abs_err": err, "contacts": int(pcnt.sum()),
+            "k1_repeats_bitwise": repeats(
+                lambda: ck.block_sparse_contact_deltas_packed(*k1_args,
+                                                              **kw)),
+            "finite": bool(torch.isfinite(kd).all())})
+        inputs[name] = (a, k2_args, k1_args)
+    ok = (all(x["k2_equal"] and x["k2_repeats_bitwise"]
+              and x["k1_counts_equal"] and x["k1_max_abs_err"] <= K1_ATOL
+              and x["k1_repeats_bitwise"] and x["finite"] for x in cases)
+          and cases[-1]["contacts"] > 0)
+    emit({"phase": "cloth_kernel_check", "ok": ok, "atol": K1_ATOL,
+          "jitter": CLOTH_JITTER, "cases": cases})
+    if not ok:
+        raise RuntimeError("K1 or K2 disagrees with its plain version on "
+                           "the cloth")
+    out["k1_err"] = k1_err
+
+    # card against CPU over one frame (the box pushing the landed sheet),
+    # beside the CPU's own spread under a 1e-6 nudge of its input
+    _phase[0] = "cloth_frame_agreement"
+    t0 = time.perf_counter()
+    spec_cpu = tree_to(spec, "cpu")
+    sl = slice(T_CLOTH, T_CLOTH + 1)
+
+    def one(state, device):
+        return rollout_steps(
+            tree_to(state, device), spec if device != "cpu" else spec_cpu,
+            ptj[sl], qtj[sl], c.substeps, c.iterations)[1].cpu()
+
+    card, cpu, cpu_n = one(final, dev), one(final, "cpu"), one(
+        nudged(final), "cpu")
+    spread = (cpu_n - cpu).abs().amax(dim=(0, 2))
+    median_atol = MEDIAN_X_NUDGED * float(spread.median())
+    max_atol = MAX_X_NUDGED * float(spread.max())
+
+    def reading(frame):
+        per_particle = (frame - cpu).abs().amax(dim=(0, 2))
+        return {"max": float(per_particle.max()),
+                "median": float(per_particle.median())}
+
+    # the gates' power: card frames with one pass left out (the offset
+    # springs; every shape slot invalid, so the shape pass adds nothing)
+    # must fail both gates
+    left_out = {
+        "no_springs": rollout_steps(
+            final, spec._replace(offset_springs=None), ptj[sl], qtj[sl],
+            c.substeps, c.iterations)[1].cpu(),
+        "no_shapes": one(final._replace(shapes=final.shapes._replace(
+            valid=torch.zeros_like(final.shapes.valid))), dev)}
+    left_out = {k: reading(v) for k, v in left_out.items()}
+    card_r = reading(card)
+    r = {"phase": "cloth_frame_agreement", "frame": T_CLOTH,
+         "card_vs_cpu_max": card_r["max"],
+         "card_vs_cpu_median": card_r["median"],
+         "cpu_vs_cpu_nudged_1e-6_max": float(spread.max()),
+         "cpu_vs_cpu_nudged_1e-6_median": float(spread.median()),
+         "median_atol": median_atol, "max_atol": max_atol,
+         "card_pass_left_out_vs_cpu": left_out,
+         "particles_moved_over_1e-6": int(
+             ((cpu[-1] - fpos.cpu()).abs().amax(-1) > 1e-6).sum()),
+         "max_displacement": float((cpu[-1] - fpos.cpu()).abs().max()),
+         "seconds": time.perf_counter() - t0}
+    r["ok"] = (card_r["median"] <= median_atol and card_r["max"] <= max_atol
+               and all(x["median"] > median_atol and x["max"] > max_atol
+                       for x in left_out.values()))
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("card and CPU cloth frames disagree, or a frame "
+                           "with a pass left out passes the gates")
+
+    # K1's and K2's times at the cloth's last frame (the box pushing)
+    _phase[0] = "cloth_kernel_times"
+    a, k2_args, k1_args = inputs["pushed"]
+    stream = torch.cuda.current_stream().cuda_stream
+    n_pad = a["cols"].shape[1]
+    pi, pc = k1_args[-2:]
+    nb, maxb = pi.shape
+    s1 = ck.device_scalars(dev, *k1_args[3:6])
+    s2 = ck.device_scalars(dev, a["keep"], prm.collide_filter_dist)
+    delta = torch.empty((n, 3), device=dev)
+    count = torch.empty((n,), device=dev)
+    new_idx, new_cnt = torch.empty_like(a["idx"]), torch.empty_like(a["cnt"])
+    k1_ptrs = [t.data_ptr() for t in (a["rows1"], a["cols1"], pi, pc, s1,
+                                      delta, count)]
+    k2_ptrs = [t.data_ptr() for t in (a["rows"], a["cols"], a["idx"],
+                                      a["cnt"], s2, new_idx, new_cnt)]
+
+    def k1_raw():
+        build.check(lib, lib.ag_block_sparse_contact(
+            *k1_ptrs, n, n_pad, maxb, tj, int(rest_filter), stream), "K1")
+
+    def k2_raw():
+        build.check(lib, lib.ag_refine_blocks(
+            *k2_ptrs, n_pad, maxb, tj, int(rest_filter), stream), "K2")
+
+    times = {
+        "k1_plain_a": event_ms(
+            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
+        "k1": event_ms(k1_raw, 200), "k1_b": event_ms(k1_raw, 200),
+        "k1_plain_b": event_ms(
+            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
+        "k2_plain_a": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
+                               10),
+        "k2": event_ms(k2_raw, 200), "k2_b": event_ms(k2_raw, 200),
+        "k2_plain_b": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
+                               10)}
+    contacts = cases[1]["contacts"]
+    pairs1 = int(pc.sum()) * ck.TILE * tj
+    near2 = near_pairs(a["rows"], a["cols"], a["keep"], a["idx"], a["cnt"],
+                       tj)
+    table_bytes = 2 * n_pad * 16 * 4
+    list_bytes = (nb * maxb + nb) * 4
+    k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
+    k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
+    k1_ops = DETECT_OPS * pairs1 + PROJECT_OPS * contacts
+    k2_ops = DETECT_OPS * near2
+    out["k1_bound"] = bound(k1_bytes, k1_ops)
+    out["k2_bound"] = bound(k2_bytes, k2_ops)
+    out["times"] = times
+    out["geometry"] = {"k1": build.launch_geometry(lib, "k1", n_pad, maxb),
+                       "k2": build.launch_geometry(lib, "k2", n_pad, maxb)}
+    out["detail"] = {
+        "k1": {"frame": T_CLOTH, "listed_blocks": int(pc.sum()),
+               "pairs": pairs1, "contacts": contacts, "bytes": k1_bytes,
+               "ops": k1_ops},
+        "k2": {"frame": T_CLOTH, "listed_blocks": int(a["cnt"].sum()),
+               "max_blocks_per_tile": int(a["cnt"].max()),
+               "listed_pairs": int(a["cnt"].sum()) * ck.TILE * tj,
+               "near_pairs": near2, "bytes": k2_bytes, "ops": k2_ops}}
+    emit({"phase": "cloth_kernel_times", "ok": True, "times_ms": times,
+          **out["detail"]})
+    return out
+
+
+def sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check):
+    """The rope at 5,120 particles in sparse mode on the card: its neighbor
+    list from the cell list (above 1,024 particles), no contact kernel,
+    and card frames against CPU frames. Returns the path's counts."""
+    from adaptigraph_torch.engine.cells import cell_bucket_overflow
+    from adaptigraph_torch.engine.solver import rollout_steps
+    from adaptigraph_torch.engine.state import tree_to
+
+    _phase[0] = "sparse_path"
+    spec, prm = b.spec, b.spec.params
+    p = b.state.particles
+    n = p.pos.shape[0]
+    kw = dict(contact_mode="sparse")
+    rollout_steps(b.state, spec, pos_traj[:1], quat_traj[:1], b.substeps,
+                  b.iterations, record=False, **kw)  # warm-up
+    reset_counts()
+    (fin, rec), secs = sync_time(lambda: rollout_steps(
+        b.state, spec, pos_traj[:T_SPARSE], quat_traj[:T_SPARSE],
+        b.substeps, b.iterations, **kw))
+    counts = read_counts()
+    finite = bool(torch.isfinite(rec).all())
+    overflow = int(cell_bucket_overflow(p.pos, prm.radius * 1.5, p.active))
+    emit({"phase": "sparse_path", "n": n,
+          "neighbor_find": "cell_list_neighbors" if n > 1024
+          else "neighbor_list", "frames": T_SPARSE, "seconds": secs,
+          "frames_per_s": T_SPARSE / secs, "launches": counts,
+          "cell_bucket_overflow": overflow, "finite": finite,
+          "max_displacement": float((rec[-1] - p.pos).abs().max())})
+    iters = b.substeps * b.iterations
+    if (n <= 1024 or any(counts[k] for k in ("k1", "k2", "k3", "k4"))
+            or counts["unfused_shape_pass"] != iters * T_SPARSE
+            or not finite):
+        raise RuntimeError("sparse path check failed")
+
+    # card against CPU, 3 frames: from the built scene (free fall), held to
+    # FRAME_ATOL, and from the rope's check frame (contacts), held as the
+    # block mode's contact windows are. That max gate sits below the CPU's
+    # own max spread under a 1e-6 nudge on this window (a contact decision
+    # flips under the nudge): it holds only while card and CPU take the
+    # same contact decisions, and so says more of the median than of the
+    # max
+    _phase[0] = "sparse_frame_agreement"
+    t0 = time.perf_counter()
+    spec_cpu = tree_to(spec, "cpu")
+
+    def three(state, start, device):
+        sl = slice(start, start + 3)
+        return rollout_steps(
+            tree_to(state, device), spec if device != "cpu" else spec_cpu,
+            pos_traj[sl], quat_traj[sl], b.substeps, b.iterations,
+            **kw)[1].cpu()
+
+    free = float((three(b.state, 0, dev) - three(b.state, 0, "cpu"))
+                 .abs().max())
+    g, cpu = three(pushed, t_check + 1, dev), three(pushed, t_check + 1,
+                                                    "cpu")
+    cn = three(nudged(pushed), t_check + 1, "cpu")
+    per_particle = (g - cpu).abs().amax(dim=(0, 2))
+    max_atol = float(CONTACT_MAX_FRAC * prm.solid_rest_distance)
+    r = {"phase": "sparse_frame_agreement", "frames": 3,
+         "from_built_scene_max": free, "free_fall_atol": FRAME_ATOL,
+         "check_frame": t_check + 1,
+         "card_vs_cpu_max": float(per_particle.max()),
+         "card_vs_cpu_median": float(per_particle.median()),
+         "cpu_vs_cpu_nudged_1e-6_max": float((cn - cpu).abs().max()),
+         "contact_median_atol": CONTACT_MEDIAN_ATOL,
+         "contact_max_atol": max_atol,
+         "seconds": time.perf_counter() - t0}
+    r["ok"] = (free <= FRAME_ATOL
+               and r["card_vs_cpu_median"] <= CONTACT_MEDIAN_ATOL
+               and r["card_vs_cpu_max"] <= max_atol)
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("card and CPU sparse frames disagree")
+
+    # what rounding squared distances as the JAX package's CPU does
+    # (neighbors.sq_dist_fma, worked in float64) costs on the card beside
+    # the plain float32 sum, at this path's sizes: the cell list's
+    # candidate differences (N, 27 x bucket 8, 3) and the rest filter's
+    # (N, K 24, 3), each once a frame
+    _phase[0] = "sparse_sq_dist_cost"
+    from adaptigraph_torch.engine.neighbors import sq_dist, sq_dist_fma
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cost = {}
+    for name, shape in (("cell_list", (n, 27 * 8, 3)),
+                        ("rest_filter", (n, 24, 3))):
+        d = torch.randn(shape, device=dev, generator=gen)
+        cost[name] = {"fma_f64_ms": event_ms(lambda: sq_dist_fma(d), 50),
+                      "plain_f32_ms": event_ms(lambda: sq_dist(d), 50)}
+    emit({"phase": "sparse_sq_dist_cost", "ok": True, "per_call": cost,
+          "extra_ms_per_frame": sum(c["fma_f64_ms"] - c["plain_f32_ms"]
+                                    for c in cost.values()),
+          "sparse_ms_per_frame": 1e3 * secs / T_SPARSE})
+    return counts
 
 
 def main():
@@ -1214,8 +1603,11 @@ def main():
     if failed:
         raise RuntimeError(f"card and CPU frames disagree in {failed}")
 
+    sparse_counts = sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check)
     gran = granular_phases(dev, lib)
     gt = gran["times"]
+    cloth = cloth_phases(dev, lib)
+    ct = cloth["times"]
 
     # K2's edges: the granular design point's first frame after landing
     # (lists up to 20 blocks long, none kept), bench.py's pinned rope
@@ -1246,13 +1638,16 @@ def main():
                            "case")
     emit({"phase": "kernel_times", "ok": True, "rope": rope_times,
           "granular": {"times_ms": gt, **gran["detail"]},
+          "cloth": {"times_ms": ct, **cloth["detail"]},
           "library_ms": "null: no single PyTorch call computes any of the "
                         "four functions"})
 
     # launches: each path's counts, read just after it ran from zero
     by_path = {"rope_main_path": launches,
                "granular_path": gran["granular_counts"],
-               "granular_dense_path": gran["dense_counts"]}
+               "granular_dense_path": gran["dense_counts"],
+               "cloth_path": cloth["counts"],
+               "sparse_path": sparse_counts}
 
     def total(key):
         return sum(c[key] for c in by_path.values())
@@ -1277,11 +1672,23 @@ def main():
                 "timed_at": f"granular design point's last frame, tile_j "
                             f"{gran['detail']['k1_granular']['tile_j']}, "
                             f"rest_filter off"}
+
+    def at_cloth(key):
+        ms, by = cloth[f"{key}_bound"]
+        return {"ms": min(ct[key], ct[f"{key}_b"]),
+                "plain_ms": min(ct[f"{key}_plain_a"], ct[f"{key}_plain_b"]),
+                "bound_ms": ms, "bound_by": by,
+                "launches_per_frame": cloth["counts"][key] / T_CLOTH,
+                "geometry": cloth["geometry"][key],
+                "timed_at": f"cloth design point's frame {T_CLOTH} (the box "
+                            f"pushing the landed sheet), tile_j 128, "
+                            f"rest_filter on"}
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",
          "launches": total("k1"), "launches_by_path": per_path("k1"),
-         "max_abs_err": max(k1_err, gran["k1_err"], gran["k1_full_err"]),
+         "max_abs_err": max(k1_err, gran["k1_err"], gran["k1_full_err"],
+                            cloth["k1_err"]),
          "ms": min(times["k1"], times["k1_b"]),
          "plain_ms": min(times["k1_plain_a"], times["k1_plain_b"]),
          "bound_ms": b1, "bound_by": by1, "library_ms": None,
@@ -1289,7 +1696,8 @@ def main():
          "timed_at": "rope check frame, tile_j 128, rest_filter on",
          "granular": at_design_point("k1"),
          "fused_granular_ms": min(gt["k1_fused_granular"],
-                                  gt["k1_fused_granular_b"])},
+                                  gt["k1_fused_granular_b"]),
+         "cloth": at_cloth("k1")},
         {"name": "refine_blocks", "route": "cuda", "source": src,
          "replaces": f"{pk}:487",
          "launches": total("k2"), "launches_by_path": per_path("k2"),
@@ -1307,7 +1715,8 @@ def main():
              "bound_ms": gran["k2_landed_bound"][0],
              "bound_by": gran["k2_landed_bound"][1],
              "timed_at": f"granular design point's frame {T_LANDED}, its "
-                         f"first frame after landing"}},
+                         f"first frame after landing"},
+         "cloth": at_cloth("k2")},
         {"name": "dense_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:712",
          "launches": total("k3"), "launches_by_path": per_path("k3"),

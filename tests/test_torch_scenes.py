@@ -57,9 +57,9 @@ def test_rope_builder_matches_jax(seed, variant):
         jb.n_active, jb.substeps, jb.iterations)
     assert tb.props == jb.props
     j_spec = tstate.tree_to_numpy(jb.spec)
-    # parts of the JAX spec the rope never fills and the port does not carry
+    # the rope has no springs: neither spring table is built
     for k in ("spring_inc", "offset_springs"):
-        assert j_spec.pop(k) is None
+        assert j_spec[k] is None
     assert j_spec["cluster_seg"] is None  # the ball cover overlaps
     for name, (jt, tt) in (("state", (jb.state, tb.state)),
                            ("spec", (j_spec, tb.spec))):
@@ -83,13 +83,28 @@ def test_rope_builder_matches_jax(seed, variant):
 
 
 def test_unported_materials_raise():
+    """Every material of the JAX package is ported: cloth samples and
+    builds (its sampler's draw equals the JAX sampler's; tests/
+    test_torch_cloth.py holds the build against JAX). An unknown material
+    still raises ValueError."""
+    from adaptigraph_tpu.scenes.samplers import sample_scene as j_sample
+
     rng = np.random.RandomState(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sample_scene("cloth", rng)
-    with pytest.raises(NotImplementedError):
-        build_scene("cloth", rng, device="cpu")
+    scene, props = sample_scene("cloth", rng)
+    j_scene, j_props = j_sample("cloth", np.random.RandomState(0))
+    assert props == j_props and sorted(scene) == sorted(j_scene)
+    for k in scene:
+        np.testing.assert_array_equal(np.asarray(scene[k]),
+                                      np.asarray(j_scene[k]), err_msg=k)
+    b = build_scene("cloth", np.random.RandomState(0),
+                    caps=Caps(n=640, s=4096, c=0, k=0, m=2), device="cpu",
+                    scene_overrides={"dimx": 24, "dimz": 24})
+    assert b.n_active == 576 and (b.substeps, b.iterations) == (4, 50)
+    assert b.spec.offset_springs.offsets == (1, 24, 23, 25, 2, 48)
     with pytest.raises(ValueError):
         sample_scene("sand", rng)
+    with pytest.raises(ValueError):
+        build_scene("sand", rng, device="cpu")
 
 
 def test_scene_round_trips_through_numpy():

@@ -151,9 +151,11 @@ def test_global_cluster_pass_matches_jax(stiffness):
 
 
 def test_unported_contact_modes_raise(rope, monkeypatch):
-    """The sparse mode still raises. The dense mode is ported: at 512
-    particles the auto mode picks it, sweeps with K3 on every solver
-    iteration and reaches neither block kernel."""
+    """Every contact mode is ported. At 512 particles the auto mode picks
+    the dense one, which sweeps with K3 on every solver iteration and
+    reaches neither block kernel. The sparse mode reaches no contact
+    kernel at all (tests/test_torch_sparse.py holds its frames against
+    JAX). Only an unknown mode raises."""
     from adaptigraph_torch.engine import solver as tsol
 
     b, pos_traj, quat_traj = rope
@@ -175,9 +177,13 @@ def test_unported_contact_modes_raise(rope, monkeypatch):
     out = xpbd_step(ts, tspec, 2, 4)
     assert len(calls) == 2 * 4
     assert bool(torch.isfinite(out.particles.pos).all())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rollout_steps(ts, tspec, pos_traj, quat_traj, 2, 4,
-                      contact_mode="sparse")
+    monkeypatch.setattr(tsol, "dense_contact_deltas_packed", refused)
+    _, rec = rollout_steps(ts, tspec, pos_traj, quat_traj, 2, 4,
+                           contact_mode="sparse")
+    assert rec.shape == (_T,) + tuple(ts.particles.pos.shape)
+    assert bool(torch.isfinite(rec).all())
+    with pytest.raises(ValueError, match="unknown contact_mode"):
+        xpbd_step(ts, tspec, 2, 4, contact_mode="hashed")
 
 
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
