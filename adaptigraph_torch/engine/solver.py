@@ -41,6 +41,7 @@ from adaptigraph_torch.engine.neighbors import (
 from adaptigraph_torch.engine.state import (
     ParticleState, SceneSpec, SceneState, ShapeSet)
 from adaptigraph_torch.utils import geometry as geo
+from adaptigraph_torch.utils.device import full_f32_matmul
 
 _EPS = 1e-9
 _F32 = torch.float32
@@ -93,12 +94,6 @@ def _pad_tile(x, t: int = TILE):
     if pad == 0:
         return x
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))], dim=0)
-
-
-def _full_f32_matmul():
-    """Keep float32 matrix products in full float32 on the GPU."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _mat3_apply(m3, v):
@@ -618,7 +613,7 @@ def xpbd_step(state: SceneState, spec: SceneSpec, substeps: int,
     position rows are overwritten in place. A state with `cluster_rest`
     set runs plastic flow and returns the new rest offsets.
     Sets torch.backends' TF32 switches off (full-float32 matmuls)."""
-    _full_f32_matmul()
+    full_f32_matmul()
     prm = spec.params
     dt_sub = prm.dt / substeps
     shapes = state.shapes

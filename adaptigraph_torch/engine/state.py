@@ -5,7 +5,8 @@ JAX package's field names, shapes and dtypes (particles carry an `active`
 mask, springs / clusters / shapes carry `valid` masks), so a scene built by
 either package converts to the other field by field (`scene_from_numpy`).
 The host-side builders are numpy and put their result on `device` once at
-the end.
+the end: CUDA unless a device is given (utils.device.resolve_device), so a
+call with no device and no GPU raises.
 
 Conventions: y-up, dt = 1/60 s per outer step, quaternions xyzw.
 """
@@ -16,6 +17,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from adaptigraph_torch.utils.device import resolve_device
 
 SHAPE_BOX = 0
 SHAPE_CAPSULE = 1
@@ -224,8 +227,9 @@ def _t(a, device, dtype=None):
 
 
 def make_particles(pos, inv_mass=None, group=None, self_collide=False,
-                   n_max=None, device="cpu") -> ParticleState:
+                   n_max=None, device=None) -> ParticleState:
     """Padded ParticleState from an (n, 3) position array."""
+    device = resolve_device(device)
     pos = np.asarray(pos, dtype=np.float32)
     n = pos.shape[0]
     n_max = n_max or n
@@ -254,7 +258,8 @@ def make_particles(pos, inv_mass=None, group=None, self_collide=False,
     )
 
 
-def empty_springs(capacity: int, device="cpu") -> SpringSet:
+def empty_springs(capacity: int, device=None) -> SpringSet:
+    device = resolve_device(device)
     return SpringSet(
         idx=torch.zeros((capacity, 2), dtype=torch.int32, device=device),
         rest=torch.zeros((capacity,), dtype=torch.float32, device=device),
@@ -264,9 +269,10 @@ def empty_springs(capacity: int, device="cpu") -> SpringSet:
 
 
 def make_springs(idx, rest, stiffness, capacity=None,
-                 device="cpu") -> SpringSet:
+                 device=None) -> SpringSet:
     """A SpringSet padded to `capacity` from an (s, 2) index list; rest and
     stiffness broadcast to (s,)."""
+    device = resolve_device(device)
     idx = np.asarray(idx, dtype=np.int32).reshape(-1, 2)
     s = idx.shape[0]
     capacity = capacity or s
@@ -283,7 +289,8 @@ def make_springs(idx, rest, stiffness, capacity=None,
                      stiffness=_t(stiff_p, device), valid=_t(valid_p, device))
 
 
-def empty_clusters(c: int, k: int, device="cpu") -> ClusterSet:
+def empty_clusters(c: int, k: int, device=None) -> ClusterSet:
+    device = resolve_device(device)
     return ClusterSet(
         member=torch.zeros((c, k), dtype=torch.int32, device=device),
         member_valid=torch.zeros((c, k), dtype=torch.bool, device=device),
@@ -294,9 +301,10 @@ def empty_clusters(c: int, k: int, device="cpu") -> ClusterSet:
 
 
 def make_clusters(members: list, positions, stiffness, c_max=None, k_max=None,
-                  device="cpu") -> ClusterSet:
+                  device=None) -> ClusterSet:
     """members: list of index lists; rest offsets are computed from
     `positions` relative to each cluster's (uniform-mass) COM."""
+    device = resolve_device(device)
     positions = np.asarray(positions, dtype=np.float32)
     c = len(members)
     c_max = c_max or max(c, 1)
@@ -324,9 +332,10 @@ def make_clusters(members: list, positions, stiffness, c_max=None, k_max=None,
 
 
 def make_shapes(kinds, sizes, poses, quats, m_max=None, planes=None, p_max=0,
-                device="cpu") -> ShapeSet:
+                device=None) -> ShapeSet:
     """planes: optional list (len m) of (p_i, 4) local halfspaces for CONVEX
     shapes (None entries allowed); padded to (m_max, p_max, 4)."""
+    device = resolve_device(device)
     kinds = np.asarray(kinds, dtype=np.int32).reshape(-1)
     m = kinds.shape[0]
     m_max = m_max or m
@@ -389,9 +398,10 @@ def build_spring_incidence(springs: SpringSet, n: int,
     return SpringIncidence(idx=_t(inc_idx, device), sign=_t(inc_sign, device))
 
 
-def make_offset_springs(n: int, families, device="cpu") -> OffsetSprings:
+def make_offset_springs(n: int, families, device=None) -> OffsetSprings:
     """families: list of (offset, rest, stiffness, valid), rest / stiffness
     / valid arrays of length n - offset (or scalars). Host-side numpy."""
+    device = resolve_device(device)
     f = len(families)
     rest = np.zeros((f, n), np.float32)
     stiff = np.zeros((f, n), np.float32)
@@ -411,13 +421,14 @@ def make_offset_springs(n: int, families, device="cpu") -> OffsetSprings:
 
 
 def springs_to_offset_families(idx, rest, stiffness, n: int,
-                               max_families: int = 12, device="cpu"):
+                               max_families: int = 12, device=None):
     """Split a spring list into static-offset families and an irregular
     remainder (host numpy, the JAX package's calls in its order, so both
     give the same families). Returns (OffsetSprings | None, leftover_mask):
     spring s joins a family when its index offset is among the most shared
     and its slot (offset, lower index) is unclaimed; grid and chain
     topologies convert fully."""
+    device = resolve_device(device)
     idx = np.asarray(idx, np.int64).reshape(-1, 2)
     rest = np.asarray(rest, np.float32).reshape(-1)
     stiffness = np.asarray(stiffness, np.float32).reshape(-1)

@@ -16,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def full_f32_matmul():
+    """Keep float32 matrix products in full float32 on the GPU (TF32 off),
+    as the JAX package's products at Precision.HIGHEST and on the CPU are:
+    without it a card's products cannot be held to the CPU's at 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -19,7 +19,15 @@ pruned, and synthetic lists with empty and full rows and stale slots; K1
 and K2 on the cloth's frames), checks that two launches of each kernel on
 the same inputs give the same bits, and holds frames on the card against
 frames on the CPU (on the cloth, card frames with the springs or the
-shapes left out must fail that gate). Each phase prints one JSON line. The last lines are
+shapes left out must fail that gate). It then drives the learned step
+(gnn_path) at the rope config's full width (nf 150, pstep 3, 100 objects
+and one tool point, max_nR 1000; weights from a seed; no contact kernel
+may launch): the entry's batch of 8 graphs in every aggregation mode and
+in bfloat16, held against matmul on the card and the CPU's forward, and
+the rollout evaluator over the rope main path's own push (its recorded
+positions the object track, the box's centre the tool point), card
+against CPU at every step, with its graph steps/s, launches a step and
+device idle share. Each phase prints one JSON line. The last lines are
 the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
@@ -83,6 +91,21 @@ CLOTH_JITTER = 0.01
 # 3.3e-3 a frame (BOARD_SPEED)
 MAX_X_NUDGED = 10.0
 T_SPARSE = 6  # the rope at 5,120 particles in sparse mode (the cell list)
+# the learned step (gnn_path): weights from GNN_SEED; each aggregation
+# mode on the card against matmul on the card to GNN_MODE_ATOL (the JAX
+# tests hold segment against matmul at 1e-4); the card's matmul forward
+# against the CPU's to GNN_CPU_ATOL, or 3x the CPU's own float32 rounding
+# (its float32 forward against its float64 one) where that is larger: the
+# entry batch's random weights predict motions up to ~15, where 1e-5 is
+# ten float32 ulps; bfloat16 compute within GNN_BF16_BOUND of the float32
+# motion's scale (tests/test_dynamics.py:279 at nf 150); the rollout's
+# per-step errors card against CPU to GNN_ERR_ATOL and its edges equal
+# (where the CPU itself moves by more under a GNN_NUDGE nudge of the start
+# state, to MEDIAN_X_NUDGED times that spread over the steps on which the
+# nudged CPU run keeps its edges), at most GNN_STEPS steps
+GNN_SEED = 1
+GNN_MODE_ATOL, GNN_CPU_ATOL, GNN_BF16_BOUND = 1e-4, 1e-5, 0.08
+GNN_ERR_ATOL, GNN_NUDGE, GNN_STEPS = 1e-5, 1e-6, 20
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
@@ -1212,6 +1235,280 @@ def cloth_phases(dev, lib):
     return out
 
 
+def toy_graph_batch(dev, b=8, n_obj=100, n_eef=1, n_his=4, max_nr=1000,
+                    seed=0):
+    """The port's counterpart of __graft_entry__._toy_graph_batch: b
+    rope-sized graphs on `dev` (positions 0.3 times a normal draw from a
+    numpy seed, the tool row's action 0.1 times one), their edges from the
+    port's build_edges_batch (radius 0.5, topk 10, max_nr edges), and the
+    same states' slot-layout edges (for the slotted modes) beside them."""
+    from adaptigraph_torch.ops import (build_edges_batch,
+                                       build_edges_slotted_batch)
+
+    rng = np.random.RandomState(seed)
+    n = n_obj + n_eef
+
+    def on(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    state = on((rng.randn(b, n_his, n, 3) * 0.3).astype(np.float32))
+    attrs = np.zeros((b, n, 2), np.float32)
+    attrs[:, :n_obj, 0] = 1.0
+    attrs[:, n_obj:, 1] = 1.0
+    eef_mask = np.zeros((b, n), bool)
+    eef_mask[:, n_obj:] = True
+    action = np.zeros((b, n, 3), np.float32)
+    action[:, n_obj:] = rng.randn(b, n_eef, 3) * 0.1
+    g = {"state": state, "attrs": on(attrs), "state_mask": on(
+        np.ones((b, n), bool), torch.bool), "eef_mask": on(eef_mask, torch.bool),
+         "action": on(action), "p_instance": on(np.ones((b, n_obj, 1))),
+         "physics_param": on(np.full((b, 1), 0.5)),
+         "obj_mask": on(np.ones((b, n_obj), bool), torch.bool)}
+    e = build_edges_batch(state[:, -1], 0.5, g["state_mask"], g["eef_mask"],
+                          topk=10, max_edges=max_nr)
+    s = build_edges_slotted_batch(state[:, -1], 0.5, g["state_mask"],
+                                  g["eef_mask"], topk=10, tool_slots=n_eef)
+    row = dict(g, recv=e.receivers, send=e.senders, edge_valid=e.valid)
+    slot = dict(g, recv=s.receivers, send=s.senders, edge_valid=s.valid)
+    return row, slot
+
+
+def gnn_forward(model, g):
+    with torch.no_grad():
+        return model(g["state"], g["attrs"], g["recv"], g["send"],
+                     g["edge_valid"], g["p_instance"], g["physics_param"],
+                     action=g["action"], obj_mask=g["obj_mask"])
+
+
+def gnn_model(cfg, device, state_dict=None, **over):
+    """A DynamicsPredictor of `cfg` (fields replaced by `over`) on `device`,
+    its weights from GNN_SEED, or `state_dict` when given."""
+    import dataclasses
+
+    from adaptigraph_torch.dynamics import DynamicsPredictor
+
+    model = DynamicsPredictor(dataclasses.replace(cfg, **over), device=device,
+                              generator=torch.Generator().manual_seed(
+                                  GNN_SEED))
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model.eval()
+
+
+def gnn_phases(dev, obj_track, eef_track):
+    """The learned step on the card at the rope config's full width (nf
+    150, pstep 3, 100 objects and one tool point, max_nR 1000; weights from
+    a seed): the entry's B 8 batch in every aggregation mode and in
+    bfloat16, then a rollout of the evaluator over the rope main path's
+    own push (obj_track (T, N, 3): the rope's recorded positions;
+    eef_track (T, 1, 3): the box's centre), card against CPU. Launches no
+    contact kernel. Returns the numbers printed before the last line."""
+    from adaptigraph_torch.dynamics.model import model_config_from_yaml
+    from adaptigraph_torch.dynamics.preprocess import extract_push
+    from adaptigraph_torch.dynamics.rollout import (construct_graph,
+                                                    make_rollout_step,
+                                                    rollout_push)
+    from adaptigraph_torch.tools.profile_frame import profiled
+    from adaptigraph_torch.utils import load_config
+
+    _phase[0] = "gnn_entry_batch"
+    t0 = time.perf_counter()
+    reset_counts()
+    config = load_config("dynamics/rope")
+    dcfg = config["dataset_config"]
+    mc = model_config_from_yaml(config["model_config"], dcfg, 1)
+    base = dict(aggregation="matmul", compute_dtype=torch.float32)
+    card = gnn_model(mc, dev, **base)
+    sd = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+    row, slot = toy_graph_batch(dev)
+    row_cpu, _ = toy_graph_batch("cpu")
+    edges_equal = all(torch.equal(row[k].cpu(), row_cpu[k])
+                      for k in ("recv", "send", "edge_valid"))
+    outs = {"matmul": gnn_forward(card, row),
+            "matmul_slotted_edges": gnn_forward(card, slot)}
+    models = {"matmul": card}
+    for mode in ("segment", "slotted", "slotmm"):
+        models[mode] = gnn_model(mc, dev, sd, **dict(base, aggregation=mode))
+        outs[mode] = gnn_forward(models[mode], slot if mode != "segment"
+                                 else row)
+    models["matmul_bf16"] = gnn_model(mc, dev, sd, aggregation="matmul",
+                                      compute_dtype=torch.bfloat16)
+    outs["matmul_bf16"] = gnn_forward(models["matmul_bf16"], row)
+    cpu32 = gnn_forward(gnn_model(mc, "cpu", sd, **base), row_cpu)
+    cpu64 = gnn_forward(gnn_model(mc, "cpu", sd, aggregation="matmul",
+                                  compute_dtype=torch.float64), row_cpu)
+    cpu16 = gnn_forward(gnn_model(mc, "cpu", sd, aggregation="matmul",
+                                  compute_dtype=torch.bfloat16), row_cpu)
+    scale = float(outs["matmul"][1].abs().max())
+
+    def diff(x, y, i=0):  # i = 0: predicted positions; 1: motions
+        return float((x[i].cpu() - y[i].cpu()).abs().max())
+
+    modes = {m: diff(outs[m], outs["matmul_slotted_edges" if m in (
+        "slotted", "slotmm") else "matmul"])
+        for m in ("segment", "slotted", "slotmm")}
+    cpu_rounding = diff(cpu32, cpu64)
+    cpu_atol = max(GNN_CPU_ATOL, 3.0 * cpu_rounding)
+    r = {"phase": "gnn_entry_batch", "batch": 8, "nodes": 101,
+         "edges": int(row["recv"].shape[1]),
+         "valid_edges_per_graph": row["edge_valid"].sum(1).tolist(),
+         "slot_edges": int(slot["recv"].shape[1]), "nf": mc.nf,
+         "pstep": mc.pstep, "edges_card_equal_cpu": edges_equal,
+         "mode_vs_matmul_max": modes, "mode_atol": GNN_MODE_ATOL,
+         "card_vs_cpu_max": diff(outs["matmul"], cpu32),
+         "cpu_f32_vs_f64_max": cpu_rounding,
+         "card_vs_cpu_f64_max": diff(outs["matmul"], cpu64),
+         "card_vs_cpu_atol": cpu_atol, "motion_scale": scale,
+         "bf16_vs_f32_over_scale": diff(outs["matmul_bf16"],
+                                        outs["matmul"], 1) / scale,
+         "bf16_card_vs_cpu_over_scale": diff(outs["matmul_bf16"], cpu16, 1)
+         / scale, "bf16_bound": GNN_BF16_BOUND,
+         "finite": all(bool(torch.isfinite(t).all())
+                       for o in outs.values() for t in o),
+         "on_card": all(t.device.type == torch.device(dev).type
+                        for t in list(row.values()) + list(slot.values())
+                        + [t for o in outs.values() for t in o]
+                        + [p for m in models.values()
+                           for p in m.parameters()])}
+    times = {}
+    for m, model in models.items():
+        g = slot if m in ("slotted", "slotmm") else row
+        times[m] = event_ms(lambda: gnn_forward(model, g), 20)
+    r["forward_b8_ms"] = times
+    r["seconds"] = time.perf_counter() - t0
+    r["ok"] = (edges_equal and r["finite"] and r["on_card"]
+               and max(modes.values()) <= GNN_MODE_ATOL
+               and r["card_vs_cpu_max"] <= cpu_atol
+               and r["bf16_vs_f32_over_scale"] < GNN_BF16_BOUND
+               and r["bf16_card_vs_cpu_over_scale"] < GNN_BF16_BOUND
+               and tuple(outs["matmul"][0].shape) == (8, 100, 3))
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the entry batch's forward check failed")
+
+    # the evaluator over the rope main path's push: the frame pairs from
+    # the box's track, the start graph (RandomState(42), as rollout.py
+    # draws it), then rollout_push on the card and on the CPU, every step's
+    # edges recorded; a third run on the CPU from a start state nudged by
+    # GNN_NUDGE gives the CPU's own spread
+    _phase[0] = "gnn_rollout"
+    t0 = time.perf_counter()
+    n_his = int(dcfg["n_his"])
+    pairs, _ = extract_push(eef_track, float(dcfg["dist_thresh"]), n_his,
+                            int(dcfg["n_future"]), 0)
+    pair = pairs[0]
+    phys = np.array([0.5], np.float32)
+    max_nobj = int(dcfg["datasets"][0]["max_nobj"])
+    cpu = gnn_model(mc, "cpu", sd, **base)
+
+    def start(device, nudge=0.0):
+        g, idx = construct_graph(dcfg, eef_track, obj_track, n_his, pair,
+                                 phys, np.random.RandomState(42),
+                                 device=device)
+        if nudge:
+            noise = np.random.RandomState(1).randn(*g["state"].shape)
+            g["state"] = g["state"] + torch.as_tensor(
+                noise * nudge, dtype=torch.float32, device=device)
+        return g, idx
+
+    def roll(model, g, idx, seen=None):
+        """rollout_push from graph g; with `seen`, every step's edges,
+        whether its tensors are on g's device, and whether its prediction
+        is finite are recorded into it."""
+        step = make_rollout_step(model, dcfg)
+        device = g["state"].device
+
+        def recorded(params, graph, a, b_):
+            pred, graph = step(params, graph, a, b_)
+            seen["edges"].append(tuple(graph[k].cpu() for k in (
+                "recv", "send", "edge_valid")))
+            seen["on_device"].append(all(
+                v.device == device for v in list(graph.values())
+                + [pred, a, b_]))
+            seen["finite"].append(bool(torch.isfinite(pred).all()))
+            return pred, graph
+
+        return rollout_push(dict(model.state_dict()),
+                            recorded if seen is not None else step, g, idx,
+                            pairs, eef_track, obj_track, n_his,
+                            pair[n_his - 1], pair[n_his], max_nobj,
+                            GNN_STEPS, scan=True)
+
+    runs = {}
+    for name, model, device, nudge in (("card", card, dev, 0.0),
+                                       ("cpu", cpu, "cpu", 0.0),
+                                       ("nudged", cpu, "cpu", GNN_NUDGE)):
+        g, idx = start(device, nudge)
+        seen = {"edges": [], "on_device": [], "finite": []}
+        runs[name] = (roll(model, g, idx, seen), seen, g, idx)
+    (e_card, s_card, g_card, idx), (e_cpu, s_cpu, _, idx_cpu) = (
+        runs["card"], runs["cpu"])
+    e_nudged, s_nudged = runs["nudged"][:2]
+    steps = len(e_card)
+
+    def same(x, y):
+        return all(torch.equal(u, v) for u, v in zip(x, y))
+
+    edges_equal = [same(x, y) for x, y in zip(s_card["edges"],
+                                              s_cpu["edges"])]
+    kept = 0  # the steps before the nudged CPU run first changes its edges
+    while kept < steps and same(s_nudged["edges"][kept], s_cpu["edges"][kept]):
+        kept += 1
+    d_card = np.abs(np.array(e_card) - np.array(e_cpu))
+    d_nudged = np.abs(np.array(e_nudged) - np.array(e_cpu))
+    spread = float(d_nudged[:kept].max()) if kept else 0.0
+    strict = bool(len(e_cpu) == steps and d_card.max() <= GNN_ERR_ATOL
+                  and all(edges_equal))
+    nudged_gate = bool(kept >= 3 and spread > GNN_ERR_ATOL
+                       and d_card[:kept].max() <= MEDIAN_X_NUDGED * spread
+                       and all(edges_equal[:kept]))
+    r = {"phase": "gnn_rollout", "frames": int(obj_track.shape[0]),
+         "particles": int(obj_track.shape[1]), "nodes": int(len(idx)),
+         "start_pair": pair.tolist(), "steps": steps,
+         "valid_edges_by_step": [int(e[2].sum()) for e in s_card["edges"]],
+         "errors_card": e_card, "card_vs_cpu_error_max": float(d_card.max()),
+         "card_vs_cpu_error_by_step": d_card.tolist(),
+         "edges_equal_by_step": edges_equal, "error_atol": GNN_ERR_ATOL,
+         "cpu_nudged_1e-6_error_by_step": d_nudged.tolist(),
+         "cpu_nudged_keeps_edges_steps": kept,
+         "cpu_nudged_spread": spread,
+         "nudged_gate": MEDIAN_X_NUDGED * spread,
+         "held_by": "1e-5" if strict else "nudged" if nudged_gate else None,
+         "same_fps_idx": bool(np.array_equal(idx, idx_cpu)),
+         "on_card": all(s_card["on_device"]) and all(
+             t.device.type == torch.device(dev).type
+             for t in g_card.values()),
+         "finite": all(s_card["finite"]) and all(s_cpu["finite"])}
+
+    # the step's pace: the evaluator's loop on the card, host clock synced
+    # (pred goes to the host every step), then the same loop profiled
+    roll(card, g_card, idx)  # warm-up
+    _, secs = sync_time(lambda: roll(card, g_card, idx))
+    prof = profiled(lambda: roll(card, g_card, idx), steps)
+    prof.pop("profile")
+    counts = read_counts()
+    r.update(graph_steps_per_s=steps / secs, ms_per_step=1e3 * secs / steps,
+             launches_per_step=prof["kernel_launches_per_frame"],
+             device_idle_share=prof["device_idle_share"],
+             device_busy_ms_per_step=prof["device_busy_ms_per_frame"],
+             profiled_wall_ms_per_step=prof["wall_ms_per_frame"],
+             top_kernels=prof["top_kernels"][:6], contact_launches=counts,
+             seconds=time.perf_counter() - t0)
+    r["ok"] = bool((strict or nudged_gate) and r["on_card"] and r["finite"]
+                   and r["same_fps_idx"]
+                   and steps >= 10 and not any(counts.values()))
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the learned step's rollout check failed")
+    return {"graph_steps_per_s": r["graph_steps_per_s"],
+            "ms_per_step": r["ms_per_step"],
+            "forward_b8_ms": times["matmul"],
+            "forward_b8_ms_by_mode": times,
+            "launches_per_step": r["launches_per_step"],
+            "device_idle_share": r["device_idle_share"],
+            "device_busy_ms_per_step": r["device_busy_ms_per_step"]}
+
+
 def sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check):
     """The rope at 5,120 particles in sparse mode on the card: its neighbor
     list from the cell list (above 1,024 particles), no contact kernel,
@@ -1603,6 +1900,11 @@ def main():
     if failed:
         raise RuntimeError(f"card and CPU frames disagree in {failed}")
 
+    # the learned step over this path's push: the rope's recorded positions
+    # are the object track, the box's centre the one tool point
+    gnn = gnn_phases(dev, rec[:, :b.n_active].cpu().numpy(),
+                     pos_traj[:, 1:2].astype(np.float64))
+    del rec
     sparse_counts = sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check)
     gran = granular_phases(dev, lib)
     gt = gran["times"]
@@ -1683,6 +1985,7 @@ def main():
                 "timed_at": f"cloth design point's frame {T_CLOTH} (the box "
                             f"pushing the landed sheet), tile_j 128, "
                             f"rest_filter on"}
+    emit({"phase": "gnn_numbers", "gnn_path": gnn, "card": smi})
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",

@@ -37,7 +37,8 @@ def test_shape_contact_deltas_match_jax(kind):
     quats = [q / np.linalg.norm(q), [0, 0, 0, 1]]
     pl = None if planes is None else [planes, None]
     j_sh = jstate.make_shapes(kinds, sizes, poses, quats, m_max=m, planes=pl)
-    t_sh = tstate.make_shapes(kinds, sizes, poses, quats, m_max=m, planes=pl)
+    t_sh = tstate.make_shapes(kinds, sizes, poses, quats, m_max=m, planes=pl,
+                              device="cpu")
 
     n = 400
     pos = (rng.randn(n, 3) * 0.2 + poses[0]).astype(np.float32)

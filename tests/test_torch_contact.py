@@ -421,7 +421,8 @@ def test_shape_stage_plain_matches_the_unfused_pass():
     kinds = shp[:, 0].astype(np.int32)
     quat = shp[:, 8:12]
     shapes = make_shapes(kinds, shp[:, 2:5], shp[:, 5:8], quat,
-                         planes=[None, None, None, planes2d[12:16]])
+                         planes=[None, None, None, planes2d[12:16]],
+                         device="cpu")
     pos, prev = torch.as_tensor(s["pos"]), torch.as_tensor(s["prev"])
     d0, c0 = shape_contact_deltas(
         pos, prev, shapes, shapes.pos, shapes.quat, torch.as_tensor(shp[:, 12:15]),

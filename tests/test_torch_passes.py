@@ -218,17 +218,19 @@ def _plastic_scene(mod, plastic, start, inv_mass):
             cluster_rest=jnp.array(clusters.rest) if plastic else None)
         return st, spec
     clusters = tstate.make_clusters([[0, 1, 2]], rest_pts, stiffness=0.5,
-                                    c_max=2, k_max=4)
+                                    c_max=2, k_max=4, device="cpu")
     spec = tstate.SceneSpec(
-        springs=tstate.empty_springs(4), clusters=clusters,
+        springs=tstate.empty_springs(4, device="cpu"), clusters=clusters,
         global_stiffness=torch.zeros(()), global_rest=torch.zeros((3, 3)),
         rest_pos=torch.zeros((3, 3)),
         params=tstate.make_params("cpu", gravity=0.0, plastic_threshold=0.02,
                                   plastic_creep=0.3))
     st = tstate.SceneState(
-        particles=tstate.make_particles(start, inv_mass=inv_mass),
+        particles=tstate.make_particles(start, inv_mass=inv_mass,
+                                        device="cpu"),
         shapes=tstate.make_shapes([tstate.SHAPE_PLANE], [[0, 0, 0]],
-                                  [[0, 0, 0]], [[0, 0, 0, 1]], m_max=4),
+                                  [[0, 0, 0]], [[0, 0, 0, 1]], m_max=4,
+                                  device="cpu"),
         cluster_rot=torch.tensor([[0.0, 0, 0, 1.0]] * 2),
         global_rot=torch.tensor([0.0, 0, 0, 1.0]),
         cluster_rest=clusters.rest.clone() if plastic else None)

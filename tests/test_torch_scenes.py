@@ -35,10 +35,11 @@ def _flat(tree, prefix=""):
 
 
 def _shapes(mod):
+    kw = {} if mod is jstate else {"device": "cpu"}
     return mod.make_shapes([jstate.SHAPE_PLANE, jstate.SHAPE_BOX],
                            [[0, 0, 0], [0.05, 0.4, 0.8]],
                            [[0, 0, 0], [0, 0.4, 0]],
-                           [[0, 0, 0, 1], [0, 0, 0, 1]], m_max=2)
+                           [[0, 0, 0, 1], [0, 0, 0, 1]], m_max=2, **kw)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

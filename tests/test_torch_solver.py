@@ -194,6 +194,30 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
         build_scene("rope", np.random.RandomState(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         scene_from_numpy({}, {})
+    from adaptigraph_torch.engine import state as ts
+
+    pts = np.zeros((3, 3), np.float32)
+    constructors = {
+        "make_particles": lambda **kw: ts.make_particles(pts, **kw),
+        "empty_springs": lambda **kw: ts.empty_springs(4, **kw),
+        "make_springs": lambda **kw: ts.make_springs([[0, 1]], 0.1, 1.0, **kw),
+        "empty_clusters": lambda **kw: ts.empty_clusters(2, 4, **kw),
+        "make_clusters": lambda **kw: ts.make_clusters([[0, 1, 2]], pts, 0.5,
+                                                       **kw),
+        "make_shapes": lambda **kw: ts.make_shapes(
+            [ts.SHAPE_PLANE], [[0, 0, 0]], [[0, 0, 0]], [[0, 0, 0, 1]], **kw),
+        "make_offset_springs": lambda **kw: ts.make_offset_springs(
+            3, [(1, 0.1, 1.0, True)], **kw),
+        "springs_to_offset_families": lambda **kw:
+            ts.springs_to_offset_families([[0, 1], [1, 2]], [0.1, 0.1],
+                                          [1.0, 1.0], 3, **kw)[0],
+    }
+    for name, make in constructors.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        made = make(device="cpu")
+        leaf = next(v for v in made if torch.is_tensor(v))
+        assert leaf.device == torch.device("cpu"), name
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -258,7 +258,7 @@ def test_pack_tables_for_follows_the_auto_mode(n_active):
     rng = np.random.RandomState(0)
     pos = rng.rand(n_active, 3).astype(np.float32)
     jp = jstate.make_particles(pos, self_collide=True)
-    tp = tstate.make_particles(pos, self_collide=True)
+    tp = tstate.make_particles(pos, self_collide=True, device="cpu")
     rest = np.zeros((n_active, 3), np.float32)
     jspec = type("Spec", (), {"rest_pos": jnp.asarray(rest)})
     tspec = type("Spec", (), {"rest_pos": torch.as_tensor(rest)})
