@@ -27,7 +27,15 @@ in bfloat16, held against matmul on the card and the CPU's forward, and
 the rollout evaluator over the rope main path's own push (its recorded
 positions the object track, the box's centre the tool point), card
 against CPU at every step, with its graph steps/s, launches a step and
-device idle share. Each phase prints one JSON line. The last lines are
+device idle share. Then MPPI on the learned step (plan_path) at the rope
+task's width (200 objects and the pusher, repeats to 15; 4,000 sampled
+pushes in chunks of 2,500, 2 iterations) from the rope's last recorded
+frame towards a target made from its middle frame: 3 samples held against
+the CPU, the chunked population against one chunk, sample 0 of iteration
+1 the incumbent, every action in the box, no contact kernel; with MPPI
+samples/s, the chunk forward's time in each aggregation mode, the edge
+rebuild, launches and idle share a repeat and the peak memory. Each phase
+prints one JSON line. The last lines are
 the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
@@ -106,6 +114,19 @@ T_SPARSE = 6  # the rope at 5,120 particles in sparse mode (the cell list)
 GNN_SEED = 1
 GNN_MODE_ATOL, GNN_CPU_ATOL, GNN_BF16_BOUND = 1e-4, 1e-5, 0.08
 GNN_ERR_ATOL, GNN_NUDGE, GNN_STEPS = 1e-5, 1e-6, 20
+# the planning path (plan_path): MPPI at the rope task's full width
+# (configs/planning/rope.yaml with configs/dynamics/rope.yaml's model, 200
+# objects + the 1-point pusher, repeats 5-15, weights from GNN_SEED):
+# PLAN_SAMPLES sampled pushes in the config's chunks of 2,500 (the config
+# plans 20,000; tools/profile_plan.py runs that), PLAN_ITERS MPPI
+# iterations, proposals drawn from PLAN_SEED on the card. PLAN_CPU_SAMPLES
+# samples (the first, the best, the last) are rolled again on the CPU from
+# the same draws: their states and reward parts within PLAN_ATOL of the
+# card's, or MEDIAN_X_NUDGED times the CPU's own spread under a GNN_NUDGE
+# nudge of the state where that is larger; the whole population in one
+# chunk within the same bound of the chunked one
+PLAN_SAMPLES, PLAN_ITERS, PLAN_SEED, PLAN_CPU_SAMPLES = 4000, 2, 0, 3
+PLAN_ATOL = 1e-5
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
@@ -1509,6 +1530,246 @@ def gnn_phases(dev, obj_track, eef_track):
             "device_busy_ms_per_step": r["device_busy_ms_per_step"]}
 
 
+def plan_phases(dev, frame, target_frame, n_sample=PLAN_SAMPLES,
+                max_nobj=None, n_chunk=None):
+    """MPPI on the learned step at the rope task's full width (200 objects
+    + the pusher, topk 10, n_his 4, repeats 5-15, n_look_ahead 1; nf 150,
+    pstep 3, matmul, float32; weights from GNN_SEED; physics param 0.5),
+    composed as plan.py composes it: the current state from `frame` (the
+    rope main path's last recorded frame), the target from `target_frame`,
+    n_sample pushes in the config's chunks, PLAN_ITERS iterations from the
+    initial action [-1, 0, 0, action_lower_lim[3]]. Gates: card against
+    CPU on PLAN_CPU_SAMPLES samples, chunking a memory layout only, sample
+    0 of iteration 1 the incumbent, every action in the box, no contact
+    kernel, finite rewards and states. Then the chunk forward's time in
+    each aggregation mode, the chunk's edge rebuild, a chunk's rollout
+    under the profiler. Returns the numbers printed before the last line.
+    (max_nobj and n_chunk replace the config's for a rehearsal on the
+    CPU.)"""
+    import dataclasses
+
+    from adaptigraph_torch.dynamics.model import model_config_from_yaml
+    from adaptigraph_torch.ops import build_edges_slotted_batch
+    from adaptigraph_torch.planning import Planner
+    from adaptigraph_torch.planning.actions import optimize_action_mppi
+    from adaptigraph_torch.planning.costs import running_cost_parts
+    from adaptigraph_torch.planning.forward_dynamics import (
+        make_batched_dynamics)
+    from adaptigraph_torch.tools.profile_frame import profiled
+    from adaptigraph_torch.tools.profile_plan import (forward_ops,
+                                                      initial_action,
+                                                      plan_evaluator,
+                                                      plan_points, plan_state,
+                                                      plan_target, plan_task,
+                                                      planner_config)
+    from adaptigraph_torch.utils import load_config
+
+    _phase[0] = "plan_mppi"
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    reset_counts()
+    config = load_config("dynamics/rope")
+    mc = model_config_from_yaml(config["model_config"],
+                                config["dataset_config"], 1)
+    base = dict(aggregation="matmul", compute_dtype=torch.float32)
+    card = gnn_model(mc, dev, **base)
+    sd = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+    cpu = gnn_model(mc, "cpu", sd, **base)
+    params, cpu_params = dict(card.state_dict()), dict(cpu.state_dict())
+    tc = plan_task(max_nobj, n_chunk)
+    n_max = int(tc["max_nobj"])
+    chunk = int(tc.get("n_sample_chunk", 0) or 0)
+    pts = plan_points(frame, tc)
+    target = plan_target(target_frame, tc)
+
+    def inputs(device, nudge=0.0):
+        p = pts + (np.random.RandomState(1).randn(*pts.shape) * nudge
+                   ).astype(np.float32) if nudge else pts
+        return plan_state(p, tc, device) + (
+            torch.tensor([0.5], device=device),)
+
+    st, mk, phys = inputs(dev)
+    rollout = make_batched_dynamics(card, tc)
+    evaluate, err, pen, bbox = plan_evaluator(tc, st, mk, target)
+    seen = {"acts": [], "states": [], "rewards": [], "graph": None}
+
+    def capture(module, args, kwargs, out):  # the first chunk's first graph
+        if seen["graph"] is None:
+            seen["graph"] = (args, kwargs)
+
+    def model_rollout(sc, act_seqs):
+        hook = card.register_forward_hook(capture, with_kwargs=True)
+        try:
+            out = rollout(params, st, mk, act_seqs, phys)
+        finally:
+            hook.remove()
+        if act_seqs.shape[0] == n_sample:
+            seen["acts"].append(act_seqs)
+            seen["states"].append(out["state_seqs"])
+        return out
+
+    def evaluate_seen(state_seqs, act_seqs, state_cur=None, **kw):
+        ev = evaluate(state_seqs, act_seqs)
+        if act_seqs.shape[0] == n_sample:
+            seen["rewards"].append(ev["reward_seqs"])
+        return ev
+
+    planner = Planner(planner_config(tc, n_sample, model_rollout,
+                                     evaluate_seen, dev, PLAN_ITERS))
+    init_act = initial_action(tc)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    res, secs = sync_time(lambda: planner.trajectory_optimization(
+        st, init_act, seed=PLAN_SEED))
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    counts = read_counts()
+    acts0, acts1 = seen["acts"]
+    r0, r1 = seen["rewards"]
+    states0 = seen["states"][0]
+    lower, upper = planner.lower, planner.upper
+    incumbent = optimize_action_mppi(acts0, r0, planner.reward_weight, lower,
+                                     upper, planner.push_length)
+    best = res["act_seq"]
+    in_box = all(bool(((a >= lower) & (a <= upper)).all())
+                 for a in (acts0, acts1, best[None]))
+    best_out = res["best_model_output"]["state_seqs"]
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        r0, r1, states0, seen["states"][1], best_out,
+        res["best_eval_output"]["reward_seqs"]))
+
+    # card against CPU on a few samples of iteration 0, the same draws
+    idx = [0, int(torch.argmax(r0)), n_sample - 1][:PLAN_CPU_SAMPLES]
+    cpu_roll = make_batched_dynamics(cpu, tc)
+    parts_keys = ("error", "collision", "box_pen")
+    runs = {}
+    for name, nudge in (("cpu", 0.0), ("nudged", GNN_NUDGE)):
+        cst, cmk, cph = inputs("cpu", nudge)
+        _, cerr, _, cbbox = plan_evaluator(tc, cst, cmk, target)
+        sub = acts0[idx].cpu()
+        with torch.no_grad():
+            cs = cpu_roll(cpu_params, cst, cmk, sub, cph)["state_seqs"]
+            parts = running_cost_parts(cs, sub, cst, cerr, pen, cbbox,
+                                       obj_mask=cmk)
+        runs[name] = (cs, parts)
+    with torch.no_grad():
+        card_parts = running_cost_parts(states0[idx], acts0[idx], st, err,
+                                        pen, bbox, obj_mask=mk)
+
+    def gap(x, y):
+        return float((x.cpu() - y.cpu()).abs().max())
+
+    d_state = gap(states0[idx], runs["cpu"][0])
+    s_state = gap(runs["nudged"][0], runs["cpu"][0])
+    d_parts = {k: gap(card_parts[k], runs["cpu"][1][k]) for k in parts_keys}
+    s_parts = {k: gap(runs["nudged"][1][k], runs["cpu"][1][k])
+               for k in parts_keys}
+    state_atol = max(PLAN_ATOL, MEDIAN_X_NUDGED * s_state)
+    parts_atol = max(PLAN_ATOL, MEDIAN_X_NUDGED * max(s_parts.values()))
+
+    # chunking is a memory layout: the same population in one chunk
+    one = make_batched_dynamics(card, dict(tc, n_sample_chunk=0))
+    with torch.no_grad():
+        whole = one(params, st, mk, acts0, phys)["state_seqs"]
+    per_sample = (whole - states0).abs().flatten(1).amax(1)
+    d_chunk = float(per_sample.max())
+    r = {"phase": "plan_mppi", "samples": n_sample, "chunk": chunk,
+         "chunks": -(-n_sample // chunk) if chunk else 1,
+         "iterations": PLAN_ITERS, "max_nobj": n_max,
+         "nodes": n_max + len(tc["pusher_points"]), "objects": len(pts),
+         "repeats": [int(tc["action_lower_lim"][3]),
+                     int(tc["action_upper_lim"][3])],
+         "target_points": len(target), "seconds_mppi": secs,
+         "mppi_samples_per_s": n_sample * PLAN_ITERS / secs,
+         "peak_memory_bytes": int(peak),
+         "best_act": best.cpu().tolist(),
+         "best_reward": float(res["best_eval_output"]["reward_seqs"][0]),
+         "reward_range_by_iteration": [[float(x.min()), float(x.max())]
+                                       for x in (r0, r1)],
+         "iteration1_sample0_is_incumbent": bool(torch.equal(acts1[0],
+                                                             incumbent)),
+         "actions_in_box": in_box, "finite": finite,
+         "contact_launches": counts,
+         "cpu_samples": idx, "card_vs_cpu_state_max": d_state,
+         "cpu_nudged_state_spread": s_state, "state_atol": state_atol,
+         "card_vs_cpu_parts_max": d_parts, "cpu_nudged_parts_spread": s_parts,
+         "parts_atol": parts_atol, "chunked_vs_one_chunk_max": d_chunk,
+         "chunked_vs_one_chunk_samples_differing": int((per_sample > 0).sum())}
+    r["ok"] = bool(r["iteration1_sample0_is_incumbent"] and in_box and finite
+                   and not any(counts.values()) and d_state <= state_atol
+                   and max(d_parts.values()) <= parts_atol
+                   and d_chunk <= state_atol and len(seen["acts"]) == 2)
+    r["seconds"] = time.perf_counter() - t0
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the planning path's check failed")
+
+    # the chunk's numbers: the forward in each mode and the edge rebuild on
+    # the first chunk's first graph (CUDA events), then one chunk's rollout
+    # (max_repeat repeats) under the profiler
+    _phase[0] = "plan_times"
+    t0 = time.perf_counter()
+    args, kwargs = seen["graph"]
+    b, n = args[0].shape[0], args[0].shape[2]
+    e = args[2].shape[1]
+    times = {}
+    with torch.no_grad():
+        for mode in ("matmul", "segment", "slotted", "slotmm"):
+            model = card if mode == "matmul" else gnn_model(
+                mc, dev, sd, **dict(base, aggregation=mode))
+            times[mode] = event_ms(lambda: model(*args, **kwargs), 2, warm=1)
+            del model
+        attrs = args[1]
+        state_mask = (attrs[..., 0] > 0) | (attrs[..., 1] > 0)
+        eef_mask = attrs[..., 1] > 0
+        edge_ms = event_ms(lambda: build_edges_slotted_batch(
+            args[0][:, -1], float(tc["adj_thresh"]), state_mask, eef_mask,
+            topk=int(tc["topk"]), connect_tools_all=bool(
+                tc["connect_tools_all"])), 3, warm=1)
+        max_repeat = int(tc["action_upper_lim"][3])
+        prof = profiled(lambda: rollout(params, st, mk, acts0[:b], phys),
+                        max_repeat)
+    prof.pop("profile")
+    # the forward's bound: the dense layers' operations (what every mode
+    # computes) against its inputs and weights read once and its two
+    # (b, n_max, 3) outputs written once; matmul mode's one-hot products
+    # are its own overhead, reported beside the bound
+    ops, one_hot_ops = forward_ops(b, n, n_max, e,
+                                   dataclasses.replace(mc, **base))
+    tensors = [t for t in (*args, *kwargs.values(), *params.values())
+               if torch.is_tensor(t)]
+    nbytes = (sum(t.numel() * t.element_size() for t in tensors)
+              + 2 * b * n_max * 3 * 4)
+    fwd_bound, fwd_by = bound(nbytes, ops)
+    r = {"phase": "plan_times", "chunk_samples": b, "nodes": n, "edges": e,
+         "forward_chunk_ms_by_mode": times, "forward_chunk_ops": ops,
+         "forward_chunk_bytes": nbytes,
+         "forward_chunk_bound_ms": fwd_bound, "bound_by": fwd_by,
+         "matmul_one_hot_ops": one_hot_ops,
+         "matmul_one_hot_ms_at_f32_peak": bound(0, one_hot_ops)[0],
+         "edge_rebuild_chunk_ms": edge_ms,
+         "launches_per_repeat": prof["kernel_launches_per_frame"],
+         "device_busy_ms_per_repeat": prof["device_busy_ms_per_frame"],
+         "device_idle_share": prof["device_idle_share"],
+         "profiled_wall_ms_per_repeat": prof["wall_ms_per_frame"],
+         "top_kernels": prof["top_kernels"][:6], "ok": True,
+         "seconds": time.perf_counter() - t0}
+    emit(r)
+    return {"mppi_samples_per_s": n_sample * PLAN_ITERS / secs,
+            "seconds_mppi": secs, "samples": n_sample, "chunk": chunk,
+            "peak_memory_bytes": int(peak),
+            "forward_chunk_ms_by_mode": times,
+            "forward_chunk_bound_ms": fwd_bound,
+            "matmul_one_hot_ms_at_f32_peak": r[
+                "matmul_one_hot_ms_at_f32_peak"],
+            "edge_rebuild_chunk_ms": edge_ms,
+            "launches_per_repeat": r["launches_per_repeat"],
+            "device_busy_ms_per_repeat": r["device_busy_ms_per_repeat"],
+            "device_idle_share": r["device_idle_share"],
+            "card_vs_cpu_state_max": d_state,
+            "chunked_vs_one_chunk_max": d_chunk,
+            "contact_launches": counts}
+
+
 def sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check):
     """The rope at 5,120 particles in sparse mode on the card: its neighbor
     list from the cell list (above 1,024 particles), no contact kernel,
@@ -1904,6 +2165,10 @@ def main():
     # are the object track, the box's centre the one tool point
     gnn = gnn_phases(dev, rec[:, :b.n_active].cpu().numpy(),
                      pos_traj[:, 1:2].astype(np.float64))
+    # MPPI on the learned step: the current state is this path's last
+    # recorded frame, the target is made from its middle frame
+    plan = plan_phases(dev, rec[-1, :b.n_active].cpu().numpy(),
+                       rec[T_MAIN // 2, :b.n_active].cpu().numpy())
     del rec
     sparse_counts = sparse_phase(dev, b, pos_traj, quat_traj, pushed, t_check)
     gran = granular_phases(dev, lib)
@@ -1949,7 +2214,8 @@ def main():
                "granular_path": gran["granular_counts"],
                "granular_dense_path": gran["dense_counts"],
                "cloth_path": cloth["counts"],
-               "sparse_path": sparse_counts}
+               "sparse_path": sparse_counts,
+               "plan_path": plan["contact_launches"]}
 
     def total(key):
         return sum(c[key] for c in by_path.values())
@@ -1986,6 +2252,7 @@ def main():
                             f"pushing the landed sheet), tile_j 128, "
                             f"rest_filter on"}
     emit({"phase": "gnn_numbers", "gnn_path": gnn, "card": smi})
+    emit({"phase": "plan_numbers", "plan_path": plan, "card": smi})
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",

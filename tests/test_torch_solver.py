@@ -222,7 +222,7 @@ def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
 
 
 _ROOT = Path(__file__).resolve().parents[1]
-_FORBIDDEN = ("jax", "adaptigraph_tpu", "yaml", "h5py")
+_FORBIDDEN = ("jax", "adaptigraph_tpu", "yaml", "h5py", "flax", "optax")
 
 
 @pytest.mark.parametrize(
@@ -231,7 +231,7 @@ _FORBIDDEN = ("jax", "adaptigraph_tpu", "yaml", "h5py")
                    + [_ROOT / "chip_smoke.py"]))
 def test_port_imports_no_jax(path):
     """No module of the port, and not chip_smoke.py, imports JAX, the JAX
-    package, PyYAML or h5py, at any depth of the file."""
+    package, flax, optax, PyYAML or h5py, at any depth of the file."""
     tree = ast.parse((_ROOT / path).read_text(), filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
