@@ -11,16 +11,25 @@ adaptigraph_tpu/dynamics/preprocess.py.
     the ends);
   * sanitize_positions: escaped particles frozen in place.
 
-`preprocess()`, which reads h5 episodes and writes frame_pairs/,
-positions.pkl, phys_range.txt and metadata.txt, comes with the
-data-generation slice.
+`preprocess()` reads the port's episodes (one `NN.npz` a push,
+sim/episode_io.py) and writes frame_pairs/{episode}_{push}.txt,
+positions.pkl, phys_range.txt and metadata.txt, as the JAX package's
+does from its h5 episodes.
+
+Usage: python -m adaptigraph_torch.dynamics.preprocess --config dynamics/rope
 """
 
 from __future__ import annotations
 
+import argparse
+import glob
+import os
+import pickle
+
 import numpy as np
 
-from adaptigraph_torch.sim.episode_io import load_property_params
+from adaptigraph_torch.sim.episode_io import load_data, load_property_params
+from adaptigraph_torch.utils import load_config
 
 _PHYS_KEYS = {"rope": ["stiffness"], "granular": ["granular_scale"],
               "cloth": ["sf"]}
@@ -116,3 +125,74 @@ def sanitize_positions(pos, bound: float = 20.0):
             else:
                 last = fi
     return out
+
+
+def preprocess(config):
+    """Episodes under dataset_config's data_dir/data_name -> the training
+    artifacts under prep_data_dir/data_name."""
+    dataset_config = config["dataset_config"]
+    data_name = dataset_config["data_name"]
+    data_dir = os.path.join(dataset_config["data_dir"], data_name)
+    save_dir = os.path.join(dataset_config["prep_data_dir"], data_name)
+    push_dir = os.path.join(save_dir, "frame_pairs")
+    os.makedirs(push_dir, exist_ok=True)
+
+    n_his = int(dataset_config["n_his"])
+    n_future = int(dataset_config["n_future"])
+    dist_thresh = float(dataset_config["dist_thresh"])
+    eef_dataset = dataset_config["eef"]
+
+    episodes = sorted(f for f in os.listdir(data_dir)
+                      if os.path.isdir(os.path.join(data_dir, f)) and f.isdigit())
+    all_eef, all_obj, phys = [], [], []
+    for epi in episodes:
+        epi_dir = os.path.join(data_dir, epi)
+        # the pushes that exist (00 is the settled scene): a stuck env may
+        # have stopped mid-episode
+        step_files = sorted(
+            int(os.path.basename(f)[:-4])
+            for f in glob.glob(os.path.join(epi_dir, "[0-9][0-9].npz")))
+        steps = [s for s in step_files if s > 0]
+        if not steps:
+            # settle-only / aborted episode: no pushes to pair
+            print(f"episode {epi}: no pushes, skipped")
+            continue
+        phys.append(extract_physics(epi_dir, data_name))
+        eef_steps, obj_steps, n_frames = [], [], 0
+        for step in steps:
+            d = load_data(os.path.join(epi_dir, f"{step:02}.npz"))
+            out_eef = process_eef(d["eef_states"], eef_dataset)
+            pairs, cnt = extract_push(out_eef, dist_thresh, n_his, n_future,
+                                      n_frames)
+            n_frames += cnt
+            eef_steps.append(out_eef)
+            obj_steps.append(sanitize_positions(d["positions"]))
+            np.savetxt(os.path.join(push_dir, f"{epi}_{step:02}.txt"), pairs,
+                       fmt="%d")
+        all_eef.append(np.concatenate(eef_steps, axis=0))
+        all_obj.append(np.concatenate(obj_steps, axis=0))
+        print(f"episode {epi}: {n_frames} frames, {len(steps)} pushes")
+
+    if not phys:
+        raise RuntimeError(
+            f"no complete episodes (settle + >=1 push) under {data_dir} for "
+            f"this material: generate data first (sim/data_gen.py)")
+    phys = np.stack(phys, axis=0)
+    rng = np.stack([phys.min(0), phys.max(0)], axis=0)
+    np.savetxt(os.path.join(save_dir, "phys_range.txt"), rng)
+    with open(os.path.join(save_dir, "positions.pkl"), "wb") as f:
+        pickle.dump({"eef_pos": all_eef, "obj_pos": all_obj}, f)
+    with open(os.path.join(save_dir, "metadata.txt"), "w") as f:
+        f.write(f"{dist_thresh},{n_future},{n_his}")
+    print(f"preprocessed {len(episodes)} episodes -> {save_dir}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", type=str, default="dynamics/rope")
+    args = ap.parse_args(argv)
+    preprocess(load_config(args.config))
+
+
+if __name__ == "__main__":
+    main()

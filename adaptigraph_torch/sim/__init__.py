@@ -1,2 +1,3 @@
-"""The port of adaptigraph_tpu/sim: so far the episode property params
-(`episode_io`). The simulation app comes with the data-generation slice."""
+"""The port of adaptigraph_tpu/sim: the simulator app (SimEnv, the xArm6
+kinematics, cameras, the ray-cast renderer), the episode form and the
+episode generator (data_gen)."""

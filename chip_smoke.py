@@ -34,8 +34,16 @@ frame towards a target made from its middle frame: 3 samples held against
 the CPU, the chunked population against one chunk, sample 0 of iteration
 1 the incumbent, every action in the box, no contact kernel; with MPPI
 samples/s, the chunk forward's time in each aggregation mode, the edge
-rebuild, launches and idle share a repeat and the peak memory. Each phase
-prints one JSON line. The last lines are
+rebuild, launches and idle share a repeat and the peak memory. Then the
+simulator app (sim_path): one rope episode through sim.data_gen's
+gen_episode at the data-gen config's full width (the rope at its cap of
+3,072, the floor, two tables, the stick and the xArm6's 7 convex link
+hulls, 4 cameras at 360 x 360; the settle, the push and the chunk count
+cut, SIM_CUTS): K1 8 times and K2 once a frame; the episode read back
+and preprocessed; K1 and K2 against their plain versions on a pushed
+frame; card frames, the IK track and one frame rendered by the 4
+cameras against the CPU's; its frames/s, launches a frame, the IK's
+seconds and the render's ms. Each phase prints one JSON line. The last lines are
 the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
@@ -61,9 +69,12 @@ DEVICE = "cuda:0"
 DEADLINE_S = 300.0  # build plus every phase
 T_MAIN = 80  # frames of the rope main-path rollout (the pusher's sweep)
 T_PUSH = 30  # frames searched for the kernel checks' frame (rope meets floor)
-T_GRANULAR = 36  # granular design point frames (the pile lands at about
+T_BENCH = 40  # frames of bench.py's pinned rope (timed only; 80 before the
+#               sim path took its time)
+T_GRANULAR = 28  # granular design point frames (the pile lands at about
 #                  frame 7; the board, at SimEnv's speed, reaches it at
-#                  about frame 6 and is 0.1 past its near face at the end)
+#                  about frame 6 and is ~0.07 past its near face at the end;
+#                  36 before the sim path took its time)
 T_LANDED = 8  # the granular design point's first frame after landing:
 #               AABB lists of up to 20 blocks a row tile (as at frame 36),
 #               and no granule yet within the keep distance of another
@@ -99,6 +110,30 @@ CLOTH_JITTER = 0.01
 # 3.3e-3 a frame (BOARD_SPEED)
 MAX_X_NUDGED = 10.0
 T_SPARSE = 6  # the rope at 5,120 particles in sparse mode (the cell list)
+# the simulator app (sim_path): one episode through sim.data_gen.gen_episode
+# on configs/data_gen/rope.yaml at its full width (the rope at its cap of
+# 3,072, the floor, two tables, the stick and the xArm6's 7 link hulls, 4
+# cameras at 360 x 360), its depth cut to SIM_CUTS: a 40-frame settle, 4
+# chunks of 40 frames, the robot at 1/30 a frame (the config's 1/300 would
+# not reach the rope in 120 frames), one push. Episode SIM_SEED (2,898
+# particles): its first push starts 5.1 from the arm's base and its stick
+# meets the rope at about push frame 32; episode 0's starts 7.5 away, out
+# of the arm's reach, where the JAX package's own IK track jumps to
+# another branch under a 1e-7 nudge (ROADMAP Queue 3), so no two
+# arithmetics agree on it. The IK runs on the card and the CPU over the
+# push's scripted track, the joints held over its first SIM_IK_FRAMES
+# frames to SIM_IK_ATOL or MEDIAN_X_NUDGED times the CPU's own spread under
+# a 1e-7 nudge of the start joints, whichever is larger; one pushed frame
+# is rendered on both, float frames held off the depth silhouettes
+# (render.silhouette_pixels) to SIM_RENDER_ATOL times the larger of 1 and
+# the value: colours in [0, 1] to 1e-5, depths (up to ~20 here) to 1e-5 of
+# themselves, about 10 float32 ulps (the card's matmuls and fused
+# multiply-adds round the ray directions differently from the CPU's, and a
+# depth of 15 carries that rounding times 15)
+SIM_CUTS = {"settle_steps": 40, "max_chunks": 4, "robot_speed_inv": 30,
+            "n_timestep": 1}
+SIM_SEED = 3
+SIM_IK_FRAMES, SIM_IK_ATOL, SIM_RENDER_ATOL = 120, 5e-5, 1e-5
 # the learned step (gnn_path): weights from GNN_SEED; each aggregation
 # mode on the card against matmul on the card to GNN_MODE_ATOL (the JAX
 # tests hold segment against matmul at 1e-4); the card's matmul forward
@@ -472,6 +507,74 @@ def k2_edges(cases):
             "listed": int(cnt.sum()), "max_blocks_per_tile": int(cnt.max()),
             "kept": int(pc.sum())})
     return report
+
+
+def k1_k2_times(dev, lib, a, k1_args, k2_args, tile_j, rest_filter):
+    """K1's and K2's times on one frame's inputs (kernel_inputs' `a`, with
+    K1's arguments over K2's refined lists): raw launches and the plain
+    versions in turns, with each one's bound (bytes it must move, or
+    float32 operations on the pairs this frame's data needs) and launch
+    geometry."""
+    from adaptigraph_torch.engine import contact_kernels as ck
+    from adaptigraph_torch.kernels import build
+
+    n, prm = a["n"], a["prm"]
+    kw = dict(rest_filter=rest_filter, tile_j=tile_j)
+    stream = torch.cuda.current_stream().cuda_stream
+    n_pad = a["cols"].shape[1]
+    pi, pc = k1_args[-2:]
+    nb, maxb = pi.shape
+    s1 = ck.device_scalars(dev, *k1_args[3:6])
+    s2 = ck.device_scalars(dev, a["keep"], prm.collide_filter_dist)
+    delta = torch.empty((n, 3), device=dev)
+    count = torch.empty((n,), device=dev)
+    new_idx, new_cnt = torch.empty_like(a["idx"]), torch.empty_like(a["cnt"])
+    k1_ptrs = [t.data_ptr() for t in (a["rows1"], a["cols1"], pi, pc, s1,
+                                      delta, count)]
+    k2_ptrs = [t.data_ptr() for t in (a["rows"], a["cols"], a["idx"],
+                                      a["cnt"], s2, new_idx, new_cnt)]
+
+    def k1_raw():
+        build.check(lib, lib.ag_block_sparse_contact(
+            *k1_ptrs, n, n_pad, maxb, tile_j, int(rest_filter), stream), "K1")
+
+    def k2_raw():
+        build.check(lib, lib.ag_refine_blocks(
+            *k2_ptrs, n_pad, maxb, tile_j, int(rest_filter), stream), "K2")
+
+    times = {
+        "k1_plain_a": event_ms(
+            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
+        "k1": event_ms(k1_raw, 200), "k1_b": event_ms(k1_raw, 200),
+        "k1_plain_b": event_ms(
+            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
+        "k2_plain_a": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
+                               10),
+        "k2": event_ms(k2_raw, 200), "k2_b": event_ms(k2_raw, 200),
+        "k2_plain_b": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
+                               10)}
+    contacts = int(ck.block_sparse_contact_plain(*k1_args, **kw)[1].sum())
+    pairs1 = int(pc.sum()) * ck.TILE * tile_j
+    near2 = near_pairs(a["rows"], a["cols"], a["keep"], a["idx"], a["cnt"],
+                       tile_j)
+    table_bytes = 2 * n_pad * 16 * 4
+    list_bytes = (nb * maxb + nb) * 4
+    k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
+    k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
+    k1_ops = DETECT_OPS * pairs1 + PROJECT_OPS * contacts
+    k2_ops = DETECT_OPS * near2
+    return {
+        "times": times,
+        "k1_bound": bound(k1_bytes, k1_ops), "k2_bound": bound(k2_bytes, k2_ops),
+        "geometry": {"k1": build.launch_geometry(lib, "k1", n_pad, maxb),
+                     "k2": build.launch_geometry(lib, "k2", n_pad, maxb)},
+        "detail": {
+            "k1": {"listed_blocks": int(pc.sum()), "pairs": pairs1,
+                   "contacts": contacts, "bytes": k1_bytes, "ops": k1_ops},
+            "k2": {"listed_blocks": int(a["cnt"].sum()),
+                   "max_blocks_per_tile": int(a["cnt"].max()),
+                   "listed_pairs": int(a["cnt"].sum()) * ck.TILE * tile_j,
+                   "near_pairs": near2, "bytes": k2_bytes, "ops": k2_ops}}}
 
 
 def granular_phases(dev, lib):
@@ -1195,63 +1298,334 @@ def cloth_phases(dev, lib):
     # K1's and K2's times at the cloth's last frame (the box pushing)
     _phase[0] = "cloth_kernel_times"
     a, k2_args, k1_args = inputs["pushed"]
-    stream = torch.cuda.current_stream().cuda_stream
-    n_pad = a["cols"].shape[1]
-    pi, pc = k1_args[-2:]
-    nb, maxb = pi.shape
-    s1 = ck.device_scalars(dev, *k1_args[3:6])
-    s2 = ck.device_scalars(dev, a["keep"], prm.collide_filter_dist)
-    delta = torch.empty((n, 3), device=dev)
-    count = torch.empty((n,), device=dev)
-    new_idx, new_cnt = torch.empty_like(a["idx"]), torch.empty_like(a["cnt"])
-    k1_ptrs = [t.data_ptr() for t in (a["rows1"], a["cols1"], pi, pc, s1,
-                                      delta, count)]
-    k2_ptrs = [t.data_ptr() for t in (a["rows"], a["cols"], a["idx"],
-                                      a["cnt"], s2, new_idx, new_cnt)]
-
-    def k1_raw():
-        build.check(lib, lib.ag_block_sparse_contact(
-            *k1_ptrs, n, n_pad, maxb, tj, int(rest_filter), stream), "K1")
-
-    def k2_raw():
-        build.check(lib, lib.ag_refine_blocks(
-            *k2_ptrs, n_pad, maxb, tj, int(rest_filter), stream), "K2")
-
-    times = {
-        "k1_plain_a": event_ms(
-            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
-        "k1": event_ms(k1_raw, 200), "k1_b": event_ms(k1_raw, 200),
-        "k1_plain_b": event_ms(
-            lambda: ck.block_sparse_contact_plain(*k1_args, **kw), 10),
-        "k2_plain_a": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
-                               10),
-        "k2": event_ms(k2_raw, 200), "k2_b": event_ms(k2_raw, 200),
-        "k2_plain_b": event_ms(lambda: ck.refine_blocks_plain(*k2_args, **kw),
-                               10)}
-    contacts = cases[1]["contacts"]
-    pairs1 = int(pc.sum()) * ck.TILE * tj
-    near2 = near_pairs(a["rows"], a["cols"], a["keep"], a["idx"], a["cnt"],
-                       tj)
-    table_bytes = 2 * n_pad * 16 * 4
-    list_bytes = (nb * maxb + nb) * 4
-    k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
-    k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
-    k1_ops = DETECT_OPS * pairs1 + PROJECT_OPS * contacts
-    k2_ops = DETECT_OPS * near2
-    out["k1_bound"] = bound(k1_bytes, k1_ops)
-    out["k2_bound"] = bound(k2_bytes, k2_ops)
-    out["times"] = times
-    out["geometry"] = {"k1": build.launch_geometry(lib, "k1", n_pad, maxb),
-                       "k2": build.launch_geometry(lib, "k2", n_pad, maxb)}
-    out["detail"] = {
-        "k1": {"frame": T_CLOTH, "listed_blocks": int(pc.sum()),
-               "pairs": pairs1, "contacts": contacts, "bytes": k1_bytes,
-               "ops": k1_ops},
-        "k2": {"frame": T_CLOTH, "listed_blocks": int(a["cnt"].sum()),
-               "max_blocks_per_tile": int(a["cnt"].max()),
-               "listed_pairs": int(a["cnt"].sum()) * ck.TILE * tj,
-               "near_pairs": near2, "bytes": k2_bytes, "ops": k2_ops}}
+    timed = k1_k2_times(dev, lib, a, k1_args, k2_args, tj, rest_filter)
+    times = out["times"] = timed["times"]
+    out.update({k: timed[k] for k in ("k1_bound", "k2_bound", "geometry")})
+    out["detail"] = {k: {"frame": T_CLOTH, **v}
+                     for k, v in timed["detail"].items()}
     emit({"phase": "cloth_kernel_times", "ok": True, "times_ms": times,
+          **out["detail"]})
+    return out
+
+
+def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None):
+    """The simulator app on the card: one episode through gen_episode (the
+    settle and one push, K2 once and K1 substeps x iterations times a
+    frame), read back and preprocessed; K1 and K2 against their plain
+    versions on a pushed frame; card frames, the IK track and a rendered
+    capture against the CPU's; 3 push frames under torch.profiler; K1's
+    and K2's times there. `config` (the
+    data-gen config) and `dyn_config` (the preprocess config) default to
+    the rope's. Returns what the kernel table needs."""
+    import shutil
+    import tempfile
+
+    from adaptigraph_torch.dynamics.preprocess import preprocess
+    from adaptigraph_torch.engine import contact_kernels as ck
+    from adaptigraph_torch.engine.state import tree_to
+    from adaptigraph_torch.sim import env as senv
+    from adaptigraph_torch.sim import render, robot
+    from adaptigraph_torch.sim.data_gen import gen_episode
+    from adaptigraph_torch.sim.episode_io import load_data
+    from adaptigraph_torch.utils import load_config
+
+    out = {}
+    _phase[0] = "sim_path"
+    cfg = config or load_config("data_gen/rope")
+    cfg["dataset"].update(SIM_CUTS)
+    d = cfg["dataset"]
+    d["base"] = seed  # the base episode writes the cameras' parameters
+    tmp = tempfile.mkdtemp(prefix="sim_path_")
+    try:
+        env = senv.SimEnv(cfg, device=dev)
+        # keep the input states of each chunk's first 3 frames: the kernel
+        # checks and the card-vs-CPU windows take frames of this run
+        kept, frames = {}, [0]
+        step = senv.xpbd_step
+
+        def keeping(st, *args, **kw):
+            if frames[0] % senv.CHUNK < 3:
+                kept[frames[0]] = st
+            frames[0] += 1
+            return step(st, *args, **kw)
+
+        senv.xpbd_step = keeping
+        reset_counts()
+        try:
+            env, secs = sync_time(lambda: gen_episode(cfg, seed, True, tmp,
+                                                      env=env))
+        finally:
+            senv.xpbd_step = step
+        counts = read_counts()
+        n_frames = frames[0]
+        settle = -(-env.settle_steps // senv.CHUNK) * senv.CHUNK
+        push, plan, cap = (env.stats[k] for k in ("push", "plan", "capture"))
+        ep = env.episode_stats
+        iters = env.substeps * env.iterations
+        fpos = env.state.particles.pos
+        overflow = int(env.state.contact_overflow)
+        finite = bool(torch.isfinite(fpos).all())
+        epi = os.path.join(tmp, d["obj"], f"{seed:06}")
+        e0, e1 = (load_data(os.path.join(epi, f"{i:02}.npz")) for i in (0, 1))
+        moved = float(np.abs(e1["positions"][-1] - e0["positions"][0]).max())
+        r = {"phase": "sim_path", "cuts": SIM_CUTS, "seed": seed,
+             "n_active": env.n_active, "cap": env.caps_ep.n,
+             "shape_slots": int(env.state.shapes.kind.shape[0]),
+             "cameras": f"4 x {d['screenHeight']} x {d['screenWidth']}",
+             "frames_run": n_frames, "settle_frames": settle,
+             "push_frames": push["frames"], "launches": counts,
+             "launches_per_frame": {k: v / n_frames for k, v in counts.items()},
+             "push_frames_per_s": push["frames"] / push["seconds"],
+             "push_ms_per_frame": 1e3 * push["seconds"] / push["frames"],
+             "ik_seconds": plan["ik_seconds"],
+             "ik_share_of_push": plan["ik_seconds"]
+             / (plan["ik_seconds"] + push["seconds"]),
+             "render_ms_per_frame_4_cameras": 1e3 * cap["seconds"]
+             / cap["frames"], "captured_frames": cap["frames"],
+             "episode_seconds": ep["seconds"], "seconds": secs,
+             "pushes_run": ep["pushes_run"], "action": ep["actions"][0].tolist(),
+             "contact_overflow": overflow, "finite": finite,
+             "rope_moved": moved}
+        emit(r)
+        if (counts["k1"] != iters * n_frames or counts["k2"] != n_frames
+                or counts["k3"] != 0 or counts["k4"] != 0
+                or n_frames != settle + push["frames"]
+                or ep["pushes_run"] != 1 or ep["stuck"] or overflow != 0
+                or not finite or moved < 0.05):
+            raise RuntimeError("sim path check failed")
+        out["counts"] = counts
+
+        # the episode as written: its schema, dtypes and shapes, the cameras,
+        # and preprocess() over it
+        _phase[0] = "sim_episode"
+        h, w = int(d["screenHeight"]), int(d["screenWidth"])
+        schema = []
+        for e in (e0, e1):
+            t = e["positions"].shape[0]
+            schema.append(
+                sorted(e) == ["action", "eef_states", "info", "observations",
+                              "positions"]
+                and int(e["info"]["n_cams"]) == 4
+                and int(e["info"]["timestamp"]) == t
+                and e["positions"].shape == (t, env.n_active, 3)
+                and e["positions"].dtype == np.float32
+                and e["eef_states"].shape == (t, 1, 14)
+                and e["eef_states"].dtype == np.float32
+                and all(e["observations"]["color"][f"cam_{c}"].shape
+                        == (t, h, w, 3)
+                        and e["observations"]["color"][f"cam_{c}"].dtype
+                        == np.uint8
+                        and e["observations"]["depth"][f"cam_{c}"].shape
+                        == (t, h, w)
+                        and e["observations"]["depth"][f"cam_{c}"].dtype
+                        == np.uint16 for c in range(4)))
+        cam_dir = os.path.join(tmp, d["obj"], "cameras")
+        cams = (np.load(os.path.join(cam_dir, "intrinsic.npy")).shape,
+                np.load(os.path.join(cam_dir, "extrinsic.npy")).shape)
+        dyn = dyn_config or load_config("dynamics/rope")
+        dyn["dataset_config"].update(data_dir=tmp,
+                                     prep_data_dir=os.path.join(tmp, "prep"))
+        preprocess(dyn)
+        prep = os.path.join(tmp, "prep", dyn["dataset_config"]["data_name"])
+        pairs = np.loadtxt(os.path.join(prep, "frame_pairs",
+                                        f"{seed:06}_01.txt"), ndmin=2)
+        r = {"phase": "sim_episode", "frames": [e0["positions"].shape[0],
+                                                e1["positions"].shape[0]],
+             "schema_ok": schema, "camera_shapes": [list(c) for c in cams],
+             "frame_pairs": list(pairs.shape),
+             "prep_files": sorted(os.listdir(prep))}
+        r["ok"] = (all(schema) and cams == ((4, 4), (4, 4, 4))
+                   and pairs.shape[0] >= 1 and np.array_equal(
+                       e1["action"], ep["actions"][0]))
+        emit(r)
+        if not r["ok"]:
+            raise RuntimeError("the episode as written is not as expected")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # K2 and K1 against their plain versions on the pushed frame (a chunk's
+    # first frame) whose first iteration meets the most particle contacts
+    _phase[0] = "sim_kernel_check"
+    spec, prm = env.spec, env.spec.params
+    tj, rf = 128, env.rest_filter
+    contacts = {t: frame_contacts(kept[t], spec) for t in kept
+                if t % senv.CHUNK == 0 and t >= settle and t + 2 in kept}
+    t_check = max(contacts, key=lambda t: (contacts[t], -t))
+    a = kernel_inputs(kept[t_check], spec, tj, substeps=env.substeps)
+    kw = dict(rest_filter=rf, tile_j=tj)
+    k2_args = (a["rows"], a["cols"], a["keep"], prm.collide_filter_dist,
+               a["idx"], a["cnt"])
+    ki, kc = ck.refine_overlap_blocks_packed(a["n"], *k2_args, **kw)
+    pi, pc = ck.refine_blocks_plain(*k2_args, **kw)
+    k1_args = (a["n"], a["rows1"], a["cols1"], prm.solid_rest_distance,
+               prm.particle_friction, prm.collide_filter_dist, pi, pc)
+    kd, kcnt = ck.block_sparse_contact_deltas_packed(*k1_args, **kw)
+    pd, pcnt = ck.block_sparse_contact_plain(*k1_args, **kw)
+    k1_err = float((kd - pd).abs().max())
+    r = {"phase": "sim_kernel_check", "frame": t_check,
+         "contacts_by_chunk": contacts,
+         "listed": int(a["cnt"].sum()), "kept": int(pc.sum()),
+         "k2_equal": bool(torch.equal(ki, pi) and torch.equal(kc, pc)),
+         "k2_repeats_bitwise": repeats(
+             lambda: ck.refine_overlap_blocks_packed(a["n"], *k2_args, **kw)),
+         "k1_counts_equal": bool(torch.equal(kcnt, pcnt)),
+         "k1_max_abs_err": k1_err, "contacts": int(pcnt.sum()),
+         "k1_repeats_bitwise": repeats(
+             lambda: ck.block_sparse_contact_deltas_packed(*k1_args, **kw)),
+         "atol": K1_ATOL}
+    r["ok"] = (r["k2_equal"] and r["k2_repeats_bitwise"]
+               and r["k1_counts_equal"] and k1_err <= K1_ATOL
+               and r["k1_repeats_bitwise"] and r["contacts"] > 0)
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("K1 or K2 disagrees with its plain version on the "
+                           "pushed SimEnv frame")
+    out["k1_err"], out["k2_err"] = k1_err, 0
+
+    # card against CPU: the settle's first 3 frames from the built scene
+    # within FRAME_ATOL, and the 3 frames from the checked pushed frame held
+    # to MEDIAN_X_NUDGED times the CPU's own spread under a 1e-6 nudge
+    _phase[0] = "sim_frame_agreement"
+    t0 = time.perf_counter()
+    spec_cpu = tree_to(spec, "cpu")
+
+    def three(t0, device, nudge=False):
+        st = tree_to(kept[t0], device)
+        st = nudged(st) if nudge else st
+        recs = []
+        for k in range(3):
+            if k:
+                st = st._replace(shapes=tree_to(kept[t0 + k].shapes, device))
+            st = senv.xpbd_step(st, spec if device != "cpu" else spec_cpu,
+                                env.substeps, env.iterations, rest_filter=rf,
+                                n_shapes_active=env.n_shapes_fused)
+            recs.append(st.particles.pos.cpu())
+        return torch.stack(recs)
+
+    built = (three(0, dev) - three(0, "cpu")).abs().max()
+    cpu = three(t_check, "cpu")
+    per_particle = (three(t_check, dev) - cpu).abs().amax(dim=(0, 2))
+    spread = (three(t_check, "cpu", nudge=True) - cpu).abs().amax(dim=(0, 2))
+    r = {"phase": "sim_frame_agreement", "from_built_scene_max": float(built),
+         "atol": FRAME_ATOL, "window_start": t_check,
+         "card_vs_cpu_max": float(per_particle.max()),
+         "card_vs_cpu_median": float(per_particle.median()),
+         "cpu_vs_cpu_nudged_1e-6_max": float(spread.max()),
+         "cpu_vs_cpu_nudged_1e-6_median": float(spread.median()),
+         "median_atol": MEDIAN_X_NUDGED * float(spread.median()),
+         "seconds": time.perf_counter() - t0}
+    r["ok"] = (r["from_built_scene_max"] <= FRAME_ATOL
+               and r["card_vs_cpu_median"] <= r["median_atol"])
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("card and CPU SimEnv frames disagree")
+
+    # where a push frame's time goes: 3 frames of the push loop (its
+    # tables packed once, as a group packs them) under torch.profiler
+    _phase[0] = "sim_profile"
+    from adaptigraph_torch.engine.solver import pack_tables_for
+    from adaptigraph_torch.tools import profile_frame
+
+    def push_frames():
+        st = kept[t_check]
+        tables = pack_tables_for(st.particles, spec)
+        for k in range(3):
+            if k:
+                st = st._replace(shapes=kept[t_check + k].shapes)
+            st = senv.xpbd_step(st, spec, env.substeps, env.iterations,
+                                rest_filter=rf,
+                                n_shapes_active=env.n_shapes_fused,
+                                packed_tables=tables)
+
+    push_frames()  # warm-up
+    prof = profile_frame.profiled(push_frames, 3)
+    emit({"phase": "sim_profile", "frames": 3, "window_start": t_check,
+          **{k: prof[k] for k in (
+              "wall_ms_per_frame", "device_busy_ms_per_frame",
+              "device_idle_share", "kernel_launches_per_frame")},
+          "top_kernels": prof["top_kernels"][:6]})
+
+    # the IK track of the episode's push on the card and the CPU (from the
+    # rest pose, as the episode's first push started)
+    _phase[0] = "sim_ik"
+    eef, rot, _, t_push, _ = env.scripted_track(ep["actions"][0])
+    rots = np.tile(rot[None], (eef.shape[0], 1, 1))
+    q0 = np.zeros(6, np.float32)
+    q_card = robot.ik_traj(eef[:SIM_IK_FRAMES], rots[:SIM_IK_FRAMES], q0,
+                           env.robot_base, device=dev)
+    q_cpu, q_nudged = (robot.ik_traj(
+        eef[:SIM_IK_FRAMES], rots[:SIM_IK_FRAMES], q, env.robot_base,
+        device="cpu") for q in (q0, q0 + np.float32(1e-7)))
+    gap = (q_card.cpu() - q_cpu).abs()
+    spread = float((q_nudged - q_cpu).abs().max())
+    tip, _ = robot.fk_eef(q_card, env.robot_base)
+    r = {"phase": "sim_ik", "frames": eef.shape[0], "t_push": t_push,
+         "episode_ik_seconds": plan["ik_seconds"],
+         "episode_ik_ms_per_frame": 1e3 * plan["ik_seconds"] / plan["frames"],
+         "card_vs_cpu_max": float(gap.max()), "compared_frames": SIM_IK_FRAMES,
+         "cpu_vs_cpu_nudged_1e-7_max": spread,
+         "atol": max(SIM_IK_ATOL, MEDIAN_X_NUDGED * spread),
+         "tracking_error_max": float((tip.cpu() - torch.as_tensor(
+             eef[:SIM_IK_FRAMES])).abs().max())}
+    r["ok"] = r["card_vs_cpu_max"] <= r["atol"]
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the IK track on the card disagrees with the CPU's")
+
+    # the checked pushed frame rendered by the 4 capture cameras on the card
+    # and the CPU
+    _phase[0] = "sim_render"
+    t0 = time.perf_counter()
+    st = kept[t_check]
+
+    def frames(device):
+        sh = tree_to(st.shapes, device)
+        return render.render_frames_batch(
+            st.particles.pos.to(device)[None], env.colors.to(device),
+            st.particles.active.to(device)[None], sh, sh.pos[None],
+            sh.quat[None], env._cam_pos_t.to(device),
+            env._cam_fwd_t.to(device), env._intr_t.to(device),
+            width=w, height=h)[0]
+
+    f_card, f_cpu = frames(dev), frames("cpu")
+    err = (f_card.cpu() - f_cpu).abs()
+    off = (err > SIM_RENDER_ATOL * torch.clamp(f_cpu.abs(), min=1.0)).any(
+        -1).numpy()
+    err, f_cpu = err.numpy(), f_cpu.numpy()
+    sil = np.stack([render.silhouette_pixels(f_cpu[c, ..., 4])
+                    for c in range(f_cpu.shape[0])])
+    (cc, dc), (cp, dp) = (render.quantize_frames(f)
+                          for f in (f_card, torch.as_tensor(f_cpu)))
+    r = {"phase": "sim_render", "frame": t_check, "cameras": f_cpu.shape[0],
+         "pixels": int(off.size), "tol": SIM_RENDER_ATOL,
+         "beyond_tol_off_silhouette": int((off & ~sil).sum()),
+         "beyond_tol_on_silhouette": int((off & sil).sum()),
+         "silhouette_pixels": int(sil.sum()),
+         "color_max_abs_err_off_silhouette": float(
+             err[..., :3][~sil].max(initial=0.0)),
+         "depth_max_rel_err_off_silhouette": float(
+             (err[..., 4] / np.maximum(f_cpu[..., 4], 1.0))[~sil].max(
+                 initial=0.0)),
+         "pixels_beyond_1e-5_abs": int((err > 1e-5).any(-1).sum()),
+         "color_off_by_one": int((np.abs(cc.astype(int) - cp) == 1).sum()),
+         "color_off_by_more": int((np.abs(cc.astype(int) - cp) > 1).sum()),
+         "depth_off_by_one": int((np.abs(dc.astype(int) - dp) == 1).sum()),
+         "depth_off_by_more": int((np.abs(dc.astype(int) - dp) > 1).sum()),
+         "shape_hits": int((f_cpu[..., 4] > 0).sum()),
+         "seconds": time.perf_counter() - t0}
+    r["ok"] = r["beyond_tol_off_silhouette"] == 0
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("a frame rendered on the card disagrees with the "
+                           "CPU's off the silhouettes")
+
+    # K1's and K2's times at the checked pushed frame
+    _phase[0] = "sim_kernel_times"
+    timed = k1_k2_times(dev, lib, a, k1_args, k2_args, tj, rf)
+    out.update(timed)
+    out["detail"] = {k: {"frame": t_check, **v}
+                     for k, v in timed["detail"].items()}
+    emit({"phase": "sim_kernel_times", "ok": True, "times_ms": timed["times"],
           **out["detail"]})
     return out
 
@@ -2015,15 +2389,15 @@ def main():
 
     _phase[0] = "bench_pinned"
     bp = rope_design_point(dev, lifted=False)
-    ptj, qtj = pusher_sweep(bp, T_MAIN)
+    ptj, qtj = pusher_sweep(bp, T_BENCH)
     (fp, _), secs_p = sync_time(lambda: rollout_steps(
         bp.state, bp.spec, ptj, qtj, bp.substeps, bp.iterations,
         record=False))
     movable_p = int(((bp.state.particles.inv_mass > 0)
                      & bp.state.particles.active).sum())
-    emit({"phase": "bench_pinned", "ok": True, "frames": T_MAIN,
-          "movable": movable_p, "frames_per_s": T_MAIN / secs_p,
-          "ms_per_frame": 1e3 * secs_p / T_MAIN,
+    emit({"phase": "bench_pinned", "ok": True, "frames": T_BENCH,
+          "movable": movable_p, "frames_per_s": T_BENCH / secs_p,
+          "ms_per_frame": 1e3 * secs_p / T_BENCH,
           "finite": bool(torch.isfinite(fp.particles.pos).all())})
 
     # kernel and plain-version times at the rope main path's shapes
@@ -2033,67 +2407,17 @@ def main():
     ridx, rcnt = ck.refine_blocks_plain(a["rows"], a["cols"], a["keep"],
                                         prm.collide_filter_dist, a["idx"],
                                         a["cnt"], tile_j=128)
-    n, n_pad = a["n"], a["cols"].shape[1]
-    nb, maxb = ridx.shape
-    stream = torch.cuda.current_stream().cuda_stream
-    s1 = ck.device_scalars(dev, prm.solid_rest_distance,
-                            prm.particle_friction, prm.collide_filter_dist)
-    s2 = ck.device_scalars(dev, a["keep"], prm.collide_filter_dist)
-    delta = torch.empty((n, 3), device=dev)
-    count = torch.empty((n,), device=dev)
-    new_idx, new_cnt = torch.empty_like(a["idx"]), torch.empty_like(a["cnt"])
-    k1_ptrs = [t.data_ptr() for t in (a["rows1"], a["cols1"], ridx, rcnt, s1,
-                                      delta, count)]
-    k2_ptrs = [t.data_ptr() for t in (a["rows"], a["cols"], a["idx"],
-                                      a["cnt"], s2, new_idx, new_cnt)]
-
-    def k1_raw():
-        build.check(lib, lib.ag_block_sparse_contact(
-            *k1_ptrs, n, n_pad, maxb, 128, 1, stream), "K1")
-
-    def k2_raw():
-        build.check(lib, lib.ag_refine_blocks(
-            *k2_ptrs, n_pad, maxb, 128, 1, stream), "K2")
-
-    k1_args = (n, a["rows1"], a["cols1"], prm.solid_rest_distance,
-               prm.particle_friction, prm.collide_filter_dist, ridx, rcnt)
-    k2_args = (a["rows"], a["cols"], a["keep"], prm.collide_filter_dist,
-               a["idx"], a["cnt"])
-    times = {
-        "k1_plain_a": event_ms(lambda: ck.block_sparse_contact_plain(*k1_args), 10),
-        "k1": event_ms(k1_raw, 200),
-        "k1_b": event_ms(k1_raw, 200),
-        "k1_plain_b": event_ms(lambda: ck.block_sparse_contact_plain(*k1_args), 10),
-        "k2_plain_a": event_ms(lambda: ck.refine_blocks_plain(*k2_args), 10),
-        "k2": event_ms(k2_raw, 200),
-        "k2_b": event_ms(k2_raw, 200),
-        "k2_plain_b": event_ms(lambda: ck.refine_blocks_plain(*k2_args), 10),
-    }
-    _, pc = ck.block_sparse_contact_plain(*k1_args)
-    pairs_k1 = int(rcnt.sum()) * 128 * 128
-    pairs_k2 = int(a["cnt"].sum()) * 128 * 128
-    near_k2 = near_pairs(a["rows"], a["cols"], a["keep"], a["idx"], a["cnt"],
-                         128)
-    contacts = int(pc.sum())
-    table_bytes = 2 * n_pad * 16 * 4
-    list_bytes = (nb * maxb + nb) * 4
-    k1_bytes = table_bytes + list_bytes + 3 * 4 + n * 4 * 4
-    k2_bytes = table_bytes + 2 * list_bytes + 2 * 4
-    k1_ops = DETECT_OPS * pairs_k1 + PROJECT_OPS * contacts
-    k2_ops = DETECT_OPS * near_k2
-
-    b1, by1 = bound(k1_bytes, k1_ops)
-    b2, by2 = bound(k2_bytes, k2_ops)
-    rope_geometry = {"k1": build.launch_geometry(lib, "k1", n_pad, maxb),
-                     "k2": build.launch_geometry(lib, "k2", n_pad, maxb)}
+    rope = k1_k2_times(
+        dev, lib, a, (a["n"], a["rows1"], a["cols1"], prm.solid_rest_distance,
+                      prm.particle_friction, prm.collide_filter_dist, ridx,
+                      rcnt),
+        (a["rows"], a["cols"], a["keep"], prm.collide_filter_dist, a["idx"],
+         a["cnt"]), 128, True)
+    times = rope["times"]
+    (b1, by1), (b2, by2) = rope["k1_bound"], rope["k2_bound"]
+    rope_geometry = rope["geometry"]
     # emitted with the granular kernels' times after the granular phases
-    rope_times = {
-        "times_ms": times,
-        "k1": {"listed_blocks": int(rcnt.sum()), "pairs": pairs_k1,
-               "contacts": contacts, "bytes": k1_bytes, "ops": k1_ops},
-        "k2": {"listed_blocks": int(a["cnt"].sum()),
-               "listed_pairs": pairs_k2, "near_pairs": near_k2,
-               "bytes": k2_bytes, "ops": k2_ops}}
+    rope_times = {"times_ms": times, **rope["detail"]}
 
     # three frames on the card against three on the CPU from the same
     # state. From the built scene (free fall, no contact) the two differ by
@@ -2175,6 +2499,8 @@ def main():
     gt = gran["times"]
     cloth = cloth_phases(dev, lib)
     ct = cloth["times"]
+    sim = sim_phases(dev, lib)
+    simt = sim["times"]
 
     # K2's edges: the granular design point's first frame after landing
     # (lists up to 20 blocks long, none kept), bench.py's pinned rope
@@ -2206,6 +2532,7 @@ def main():
     emit({"phase": "kernel_times", "ok": True, "rope": rope_times,
           "granular": {"times_ms": gt, **gran["detail"]},
           "cloth": {"times_ms": ct, **cloth["detail"]},
+          "sim": {"times_ms": simt, **sim["detail"]},
           "library_ms": "null: no single PyTorch call computes any of the "
                         "four functions"})
 
@@ -2214,6 +2541,7 @@ def main():
                "granular_path": gran["granular_counts"],
                "granular_dense_path": gran["dense_counts"],
                "cloth_path": cloth["counts"],
+               "sim_path": sim["counts"],
                "sparse_path": sparse_counts,
                "plan_path": plan["contact_launches"]}
 
@@ -2251,6 +2579,16 @@ def main():
                 "timed_at": f"cloth design point's frame {T_CLOTH} (the box "
                             f"pushing the landed sheet), tile_j 128, "
                             f"rest_filter on"}
+    def at_sim(key):
+        ms, by = sim[f"{key}_bound"]
+        return {"ms": min(simt[key], simt[f"{key}_b"]),
+                "plain_ms": min(simt[f"{key}_plain_a"], simt[f"{key}_plain_b"]),
+                "bound_ms": ms, "bound_by": by,
+                "launches_per_push": sim["counts"][key],
+                "geometry": sim["geometry"][key],
+                "timed_at": f"SimEnv rope's pushed frame "
+                            f"{sim['detail'][key]['frame']} (episode "
+                            f"{SIM_SEED}), tile_j 128, rest_filter on"}
     emit({"phase": "gnn_numbers", "gnn_path": gnn, "card": smi})
     emit({"phase": "plan_numbers", "plan_path": plan, "card": smi})
     emit({"kernels": [
@@ -2258,7 +2596,7 @@ def main():
          "replaces": f"{pk}:631",
          "launches": total("k1"), "launches_by_path": per_path("k1"),
          "max_abs_err": max(k1_err, gran["k1_err"], gran["k1_full_err"],
-                            cloth["k1_err"]),
+                            cloth["k1_err"], sim["k1_err"]),
          "ms": min(times["k1"], times["k1_b"]),
          "plain_ms": min(times["k1_plain_a"], times["k1_plain_b"]),
          "bound_ms": b1, "bound_by": by1, "library_ms": None,
@@ -2267,7 +2605,7 @@ def main():
          "granular": at_design_point("k1"),
          "fused_granular_ms": min(gt["k1_fused_granular"],
                                   gt["k1_fused_granular_b"]),
-         "cloth": at_cloth("k1")},
+         "cloth": at_cloth("k1"), "sim": at_sim("k1")},
         {"name": "refine_blocks", "route": "cuda", "source": src,
          "replaces": f"{pk}:487",
          "launches": total("k2"), "launches_by_path": per_path("k2"),
@@ -2286,7 +2624,7 @@ def main():
              "bound_by": gran["k2_landed_bound"][1],
              "timed_at": f"granular design point's frame {T_LANDED}, its "
                          f"first frame after landing"},
-         "cloth": at_cloth("k2")},
+         "cloth": at_cloth("k2"), "sim": at_sim("k2")},
         {"name": "dense_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:712",
          "launches": total("k3"), "launches_by_path": per_path("k3"),
