@@ -20,13 +20,12 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-from types import SimpleNamespace
 
 import torch
 
-from adaptigraph_torch.dynamics.train import init_model
 from adaptigraph_torch.planning.physics_optimizer import (
     PhysicsParamOnlineOptimizer)
+from adaptigraph_torch.planning.plan import load_model
 from adaptigraph_torch.utils import load_config
 from adaptigraph_torch.utils.device import resolve_device
 
@@ -37,11 +36,7 @@ def run_demo(task_config, save_dir, params, iterations=50, device=None):
     state_dict), on `device` (CUDA unless given). Returns the estimate."""
     device = resolve_device(device)
     material = task_config["material"]
-    dyn_config = load_config(task_config["config"])
-    phys = SimpleNamespace(phys_dim=int(task_config["material_dims"][material]))
-    model, _ = init_model(dyn_config, phys, device=device)
-    model.load_state_dict(params, strict=True)
-    model.eval()
+    model = load_model(task_config, params, device)
 
     ppm = PhysicsParamOnlineOptimizer(task_config, model,
                                       dict(model.state_dict()), material,

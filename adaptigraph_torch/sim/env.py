@@ -644,11 +644,15 @@ class SimEnv:
                     (f[..., 4] * 1000).astype(np.uint16))
         imgs_list.append(imgs)
 
-    def _render_multiview(self, particles):
+    def _render_multiview(self, particles, shapes=None):
+        """(4, H, W, 5) float frames of `particles` from the 4 cameras, with
+        `shapes` (the env's own shape set when None)."""
         H, W = self.screen
         pos = _f32(particles, self.device)
+        if shapes is None:
+            shapes = self.state.shapes
         return np.stack([render_frame(
-            pos, self.colors, self.state.particles.active, self.state.shapes,
+            pos, self.colors, self.state.particles.active, shapes,
             self._cam_pos_t[ci], self._cam_fwd_t[ci], self._intr_t,
             width=W, height=H, cloth_dims=self._cloth_dims).cpu().numpy()
             for ci in range(4)])
