@@ -424,3 +424,28 @@ def params_from_jax(params: Mapping, cfg: ModelConfig) -> "OrderedDict":
         out[f"{name}.weight"] = torch.from_numpy(kernel.T.copy())
         out[f"{name}.bias"] = torch.from_numpy(bias.copy())
     return out
+
+
+def params_to_jax(state_dict: Mapping, cfg: ModelConfig) -> dict:
+    """The flax parameter tree of a DynamicsPredictor's state_dict (or of
+    a dict of its gradients): nested dicts of float32 numpy arrays, each
+    weight (out, in) back to a kernel (in, out). The inverse of
+    `params_from_jax`; shapes are checked against `cfg` the same way."""
+    expected = cfg.layer_shapes()
+    found = {k.rsplit(".", 1)[0] for k in state_dict}
+    if found != set(expected) or len(state_dict) != 2 * len(expected):
+        raise ValueError(f"state_dict layers {sorted(found)} are not the "
+                         f"model's {sorted(expected)}")
+    out: dict = {}
+    for name, (w_in, w_out) in expected.items():
+        weight = state_dict[f"{name}.weight"].detach().cpu().numpy()
+        bias = state_dict[f"{name}.bias"].detach().cpu().numpy()
+        if weight.shape != (w_out, w_in) or bias.shape != (w_out,):
+            raise ValueError(
+                f"{name}: weight {weight.shape}, bias {bias.shape}; the "
+                f"config gives ({w_out}, {w_in}) and ({w_out},)")
+        module, dense = name.split(".")
+        out.setdefault(module, {})[dense] = {
+            "kernel": np.ascontiguousarray(weight.T, np.float32),
+            "bias": np.asarray(bias, np.float32)}
+    return out

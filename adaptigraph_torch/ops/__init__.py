@@ -1,3 +1,5 @@
+from adaptigraph_torch.ops.fps import (farthest_point_sampling, fps_radius,
+                                       fps_subsample)
 from adaptigraph_torch.ops.edges import (EdgeSet, build_edges, build_edges_batch,
                                          build_edges_slotted,
                                          build_edges_slotted_batch,

@@ -43,7 +43,17 @@ cut, SIM_CUTS): K1 8 times and K2 once a frame; the episode read back
 and preprocessed; K1 and K2 against their plain versions on a pushed
 frame; card frames, the IK track and one frame rendered by the 4
 cameras against the CPU's; its frames/s, launches a frame, the IK's
-seconds and the render's ms. Then the closed planning loop (loop_path):
+seconds and the render's ms. Between the episode's preprocessing and the
+frame checks, training (train_path) on that episode at the rope dynamics
+config's full width (nf 150, pstep 3, max_nobj 100, max_nR 1,000, B 128,
+augment on; weights from the config's seed; train and valid both take
+the one episode): one step's loss and every gradient leaf held against
+the CPU's (B 8, the same params, batch and draws), the B 128 prepared
+batch against the CPU's, train() through two K-step chunks on the
+device-resident episode and a resume, and through its host loop (equal
+bit for bit), the loss falling; train steps/s, the step's split
+(prepare, forward + backward, Adam), launches, idle share and peak
+memory; no contact kernel. Then the closed planning loop (loop_path):
 planning.plan.plan() on SimPlanEnv, the sim path's scene, at the rope
 task's full width (200 objects, the pcd target built from the card's own
 first observation, the action box recentred on the rope; 2,500 sampled
@@ -89,8 +99,9 @@ T_LANDED = 8  # the granular design point's first frame after landing:
 T_DENSE = 10  # dense band frames (the pile lands at about frame 7)
 # frames in each window of the granular frame agreement (free fall and
 # contacts, on the dense band and a block-mode scene; 3 before the loop
-# path took its time: the CPU's frames there took ~60 s of the smoke)
-GRANULAR_WINDOW = 2
+# path took its time: the CPU's frames there took ~60 s of the smoke, 2
+# before the train path took its time: ~44 s)
+GRANULAR_WINDOW = 1
 # the granular design point as it must come out of the builder
 DESIGN = {"n_active": 26982, "cap": 32768, "tile_j": 256}
 K1_ATOL = 2e-5  # tests/test_pallas_kernels.py's tolerance for the sweeps
@@ -205,6 +216,25 @@ PLAN_ATOL = 1e-5
 LOOP_SAMPLES, LOOP_ACTIONS, LOOP_PPO_ITERS, LOOP_SEED = 2500, 1, 4, 11
 LOOP_SHIFT = (0.5, 0.0, 0.0)
 LOOP_PERCEIVE_DIST, LOOP_MOVED, LOOP_PUSHED = 0.5, 1e-3, 0.05
+# training (train_path): configs/dynamics/rope.yaml at its full width (nf
+# 150, pstep 3, max_nobj 100, max_nR 1,000, n_his 4, n_future 3, matmul
+# aggregation, batch 128, augment on with state noise 0.05) on the sim
+# path's own preprocessed episode (its frame pairs; the config's
+# ratio.train [0, 0.98] keeps no episode of one, so train and valid both
+# take [0, 1]); weights from the config's seed. TRAIN_K steps a chunk.
+# Gates: one step's loss and every gradient leaf card against CPU on
+# TRAIN_GRAD_B graphs from the same params, batch and draws, within
+# TRAIN_GRAD_RTOL of the leaf's largest entry (the loss relative to
+# itself); the B 128 prepared batch on the card equal to the CPU's from
+# the same draws; train() through two K-step chunks (2 epochs of K train
+# and K valid steps), the second epoch's mean train loss below the
+# first's, `latest` read back equal, resume=True to a third epoch; the
+# same two epochs through train()'s host loop, its losses and params equal
+# to the chunk path's bit for bit; no contact kernel. TRAIN_TIME_CHUNKS
+# chunks timed for steps/s, TRAIN_SPLIT_STEPS steps split by CUDA events,
+# one step under torch.profiler.
+TRAIN_K, TRAIN_GRAD_B, TRAIN_GRAD_RTOL = 8, 8, 1e-5
+TRAIN_TIME_CHUNKS, TRAIN_SPLIT_STEPS = 3, 3
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
@@ -1359,7 +1389,8 @@ def cloth_phases(dev, lib):
     return out
 
 
-def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None):
+def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None,
+               after_episode=None):
     """The simulator app on the card: one episode through gen_episode (the
     settle and one push, K2 once and K1 substeps x iterations times a
     frame), read back and preprocessed; K1 and K2 against their plain
@@ -1367,7 +1398,11 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None):
     capture against the CPU's; 3 push frames under torch.profiler; K1's
     and K2's times there. `config` (the
     data-gen config) and `dyn_config` (the preprocess config) default to
-    the rope's. Returns what the kernel table needs."""
+    the rope's. after_episode(dyn, root), when given, runs once the
+    episode is preprocessed (dyn: the preprocess config pointed at it;
+    root: its scratch directory), before the directory is removed; its
+    result is returned under "after_episode". Returns what the kernel
+    table needs."""
     import shutil
     import tempfile
 
@@ -1491,6 +1526,8 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None):
         emit(r)
         if not r["ok"]:
             raise RuntimeError("the episode as written is not as expected")
+        if after_episode is not None:
+            out["after_episode"] = after_episode(dyn, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1681,6 +1718,248 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None):
     emit({"phase": "sim_kernel_times", "ok": True, "times_ms": timed["times"],
           **out["detail"]})
     return out
+
+
+def split_ms(parts, reps):
+    """Device ms of each of `parts`, callables run in order each on the
+    previous one's result (the first on None), by CUDA events between
+    them: the median over `reps` runs of each."""
+    times = [[] for _ in parts]
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(parts) + 1)]
+        x = None
+        ev[0].record()
+        for i, fn in enumerate(parts):
+            x = fn(x)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, t in enumerate(times):
+            t.append(ev[i].elapsed_time(ev[i + 1]))
+    return [float(np.median(t)) for t in times]
+
+
+def train_phases(dev, dyn, root, batch=None):
+    """Training on the card (train_path) over the sim path's preprocessed
+    episode: `dyn` the dynamics config pointed at it, `root` a scratch
+    directory for the run's checkpoints and loss files; batch the
+    training batch (the config's 128 when None). Card against CPU on one
+    step's loss and gradients and on the prepared batch; train() through
+    its chunk path and a resume, and through its host loop (equal bit
+    for bit); the step's pace. Launches no contact kernel. Returns the numbers printed before
+    the last line and the path's launch counts."""
+    import contextlib
+    import io
+
+    from adaptigraph_torch.dynamics import train as tt
+    from adaptigraph_torch.dynamics.dataset import (DynDataset, draw_prepare,
+                                                    make_prepare_fn)
+    from adaptigraph_torch.tools.profile_frame import profiled
+
+    _phase[0] = "train_grad"
+    t_start = time.perf_counter()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dyn.override({
+        "dataset_config": {"ratio": {"train": [0, 1], "valid": [0, 1]}},
+        "train_config": {"out_dir": os.path.join(root, "log")}})
+    tcfg = cfg["train_config"]
+    b, k = batch or int(tcfg["batch_size"]), TRAIN_K
+    d = DynDataset(cfg["dataset_config"], cfg["material_config"], "train")
+    seed, lr = int(tcfg.get("random_seed", 42)), float(tcfg.get("lr", 1e-3))
+    prepare = make_prepare_fn(d)
+
+    def fresh(device):
+        return tt.init_model(cfg, d, device=device, generator=torch.Generator(
+        ).manual_seed(seed))[0]
+
+    def host_raw(idx, device):
+        return {n: torch.from_numpy(v).to(device)
+                for n, v in d.raw_batch(idx).items()}
+
+    def on(device, tree):
+        return {n: v.to(device) for n, v in tree.items()}
+
+    # one step's loss and gradients, card against CPU: the same params,
+    # the same batch (prepared on the CPU) and draws
+    raw = host_raw(np.random.RandomState(seed).randint(0, len(d),
+                                                       TRAIN_GRAD_B), "cpu")
+    g_cpu = prepare(raw, draw_prepare(torch.Generator().manual_seed(seed),
+                                      raw, d))
+    grads = {}
+    for device, g in (("cpu", g_cpu), (dev, on(dev, g_cpu))):
+        model = fresh(device)
+        grads[str(device)] = tt.loss_and_grads(
+            tt.make_unrolled_loss(model, d.n_future),
+            dict(model.named_parameters()), g)
+    (lc, gc), (lg, gg) = grads["cpu"], grads[str(dev)]
+    leaf_err = {n: float((gg[n].cpu() - v).abs().max()
+                         / v.abs().max().clamp(min=1e-30))
+                for n, v in gc.items()}
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    r = {"phase": "train_grad", "batch": TRAIN_GRAD_B, "nf": model.cfg.nf,
+         "pstep": model.cfg.pstep, "aggregation": model.cfg.aggregation,
+         "max_nobj": d.max_nobj, "max_nR": d.max_nR, "n_his": d.n_his,
+         "n_future": d.n_future, "augment": d.augment,
+         "pairs": len(d), "raw_particles": d.n_raw,
+         "ratio": "train and valid [0, 1]: one episode",
+         "loss_cpu": float(lc), "loss_card": float(lg),
+         "loss_rel_err": loss_err, "grad_leaves": len(gc),
+         "grad_rel_err_max": max(leaf_err.values()),
+         "grad_rel_err_worst_leaf": max(leaf_err, key=leaf_err.get),
+         "rtol": TRAIN_GRAD_RTOL,
+         "nodes_per_graph": g_cpu["obj_mask"].sum(1).tolist(),
+         "edges_per_graph": g_cpu["edge_valid"].sum(1).tolist()}
+    r["ok"] = (loss_err <= TRAIN_GRAD_RTOL
+               and r["grad_rel_err_max"] <= TRAIN_GRAD_RTOL
+               and bool(np.isfinite(r["loss_card"])))
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("one training step's loss or gradients on the "
+                           "card disagree with the CPU's")
+
+    # the prepared batch at the training batch, card against CPU from the
+    # same raw windows and draws: equal sample by sample
+    _phase[0] = "train_prepare"
+    raw = host_raw(np.random.RandomState(seed + 1).randint(0, len(d), b),
+                   "cpu")
+    draws = draw_prepare(torch.Generator().manual_seed(seed), raw, d)
+    p_cpu = prepare(raw, draws)
+    p_card = prepare(on(dev, raw), on(dev, draws))
+    differ = torch.zeros(b, dtype=torch.bool)
+    keys_differ = []
+    for n, v in p_cpu.items():
+        ne = (p_card[n].cpu() != v).reshape(b, -1).any(1)
+        differ |= ne
+        if bool(ne.any()):
+            keys_differ.append(n)
+    r = {"phase": "train_prepare", "batch": b,
+         "differing_samples": int(differ.sum()), "keys_differing": keys_differ,
+         "on_card": all(v.device.type == torch.device(dev).type
+                        for v in p_card.values())}
+    r["ok"] = r["differing_samples"] == 0 and r["on_card"]
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the batch prepared on the card differs from the "
+                           "CPU's")
+
+    # train() on the card through its chunk path: two epochs of one K-step
+    # train chunk and one K-step valid chunk, then resumed to a third
+    _phase[0] = "train_path"
+    logs = []
+
+    def run_train(out, steps_per_call=k, **kw):
+        c = cfg.override({"train_config": {"out_dir": os.path.join(root,
+                                                                   out)}})
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = tt.train(c, iters=k, batch_size=b, device=dev,
+                              steps_per_call=steps_per_call, **kw)
+        logs.append(buf.getvalue().splitlines())
+        return result
+
+    (params, hist), secs = sync_time(lambda: run_train("log", epochs=2))
+    latest = tt.load_checkpoint(os.path.join(
+        root, "log", cfg["dataset_config"]["data_name"], "checkpoints"),
+        "latest", dev)
+    _, hist3 = run_train("log", epochs=3, resume=True)
+    train_losses = hist["train"]
+    r = {"phase": "train_path", "batch": b, "steps_per_chunk": k,
+         "epochs": 2, "train_loss_by_epoch": train_losses,
+         "valid_loss_by_epoch": hist["valid"], "seconds": secs,
+         "latest_reads_back_equal": all(torch.equal(latest[n], params[n])
+                                        for n in params),
+         "resumed_train_loss_by_epoch": hist3["train"],
+         "resume_log": [ln for ln in logs[1] if "resumed" in ln],
+         "log": logs[0][:4]}
+    r["ok"] = bool(np.isfinite(train_losses).all()
+                   and np.isfinite(hist["valid"]).all()
+                   and len(train_losses) == 2
+                   and train_losses[1] < train_losses[0]
+                   and r["latest_reads_back_equal"]
+                   and r["resume_log"] == ["resumed from epoch 2"]
+                   and len(hist3["train"]) == 3
+                   and hist3["train"][:2] == train_losses)
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("train() on the card failed its checks")
+
+    # the same two epochs through train()'s host loop (raw_batch on the
+    # host a step): the same batch indices and generator draws, so the
+    # same losses and params bit for bit
+    _phase[0] = "train_chunk_vs_host"
+    host_params, host_hist = run_train("log_host", epochs=2,
+                                       steps_per_call=None)
+    r = {"phase": "train_chunk_vs_host", "epochs": 2, "steps": 2 * k,
+         "batch": b, "losses_equal": host_hist == hist,
+         "params_equal": all(torch.equal(params[n], host_params[n])
+                             for n in params),
+         "params_max_abs_diff": max(float((params[n] - host_params[n])
+                                          .abs().max()) for n in params)}
+    r["ok"] = r["losses_equal"] and r["params_equal"]
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("train()'s chunk path and host loop disagree")
+
+    # the step's pace at the training batch: whole chunks on the host
+    # clock, one step split by CUDA events, one step under torch.profiler
+    _phase[0] = "train_times"
+    common, pairs = tt.device_dataset({"train": d}, device=dev)
+    model = fresh(dev)
+    opt, _ = tt.make_optimizer(model.parameters(), lr)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    chunk, _ = tt.make_train_chunk(model, d.n_future, opt, d, common,
+                                   pairs["train"], gen)
+    rng = np.random.RandomState(seed + 3)
+    tables = [rng.randint(0, len(d), (k, b))
+              for _ in range(TRAIN_TIME_CHUNKS)]
+    chunk_s = [sync_time(lambda: chunk(t))[1] for t in tables]
+    med = float(np.median(chunk_s))
+    loss_fn = tt.make_unrolled_loss(model, d.n_future)
+    params = dict(model.named_parameters())
+    row = torch.as_tensor(tables[0][0]).to(dev)
+
+    def prep_part(_):
+        raw = tt._gather_raw(common, pairs["train"], row)
+        return prepare(raw, draw_prepare(gen, raw, d))
+
+    def fwd_bwd_part(g):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, g)
+        loss.backward()
+        return loss
+
+    prep_ms, fb_ms, adam_ms = split_ms(
+        [prep_part, fwd_bwd_part, lambda _: opt.step()], TRAIN_SPLIT_STEPS)
+    prof = profiled(lambda: chunk(tables[0][:1]), 1)
+    prof.pop("profile")
+    counts = read_counts()
+    resident = sum(v.numel() * v.element_size() for v in
+                   list(common.values()) + list(pairs.values()))
+    peak = torch.cuda.max_memory_allocated()
+    r = {"phase": "train_times", "batch": b, "steps_per_chunk": k,
+         "chunks_timed": len(chunk_s), "chunk_seconds": chunk_s,
+         "train_steps_per_s": k / med, "train_samples_per_s": k * b / med,
+         "ms_per_step": 1e3 * med / k,
+         "step_split_ms": {"prepare": prep_ms, "forward_backward": fb_ms,
+                           "adam": adam_ms},
+         "launches_per_step": prof["kernel_launches_per_frame"],
+         "device_busy_ms_per_step": prof["device_busy_ms_per_frame"],
+         "device_idle_share": prof["device_idle_share"],
+         "profiled_wall_ms_per_step": prof["wall_ms_per_frame"],
+         "top_kernels": prof["top_kernels"][:6],
+         "resident_bytes": resident, "peak_memory_bytes": peak,
+         "contact_launches": counts,
+         "seconds": time.perf_counter() - t_start}
+    r["ok"] = not any(counts.values())
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("a contact kernel launched inside the train path")
+    return {"counts": counts, **{n: r[n] for n in (
+        "train_steps_per_s", "train_samples_per_s", "ms_per_step",
+        "step_split_ms", "launches_per_step", "device_busy_ms_per_step",
+        "device_idle_share", "resident_bytes", "peak_memory_bytes")},
+        "train_loss_by_epoch": train_losses, "seconds": r["seconds"]}
 
 
 def toy_graph_batch(dev, b=8, n_obj=100, n_eef=1, n_his=4, max_nr=1000,
@@ -2911,8 +3190,10 @@ def main():
     gt = gran["times"]
     cloth = cloth_phases(dev, lib)
     ct = cloth["times"]
-    sim = sim_phases(dev, lib)
+    sim = sim_phases(dev, lib, after_episode=lambda dyn, root: train_phases(
+        dev, dyn, root))
     simt = sim["times"]
+    train = sim["after_episode"]
     loop = loop_phases(dev)
 
     # K2's edges: the granular design point's first frame after landing
@@ -2957,7 +3238,8 @@ def main():
                "sim_path": sim["counts"],
                "sparse_path": sparse_counts,
                "plan_path": plan["contact_launches"],
-               "loop_path": loop["counts"]}
+               "loop_path": loop["counts"],
+               "train_path": train["counts"]}
 
     def total(key):
         return sum(c[key] for c in by_path.values())
@@ -3006,6 +3288,7 @@ def main():
     emit({"phase": "gnn_numbers", "gnn_path": gnn, "card": smi})
     emit({"phase": "plan_numbers", "plan_path": plan, "card": smi})
     emit({"phase": "loop_numbers", "loop_path": loop, "card": smi})
+    emit({"phase": "train_numbers", "train_path": train, "card": smi})
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",
