@@ -10,11 +10,12 @@ against the FPS-subsampled ground truth. The step (model forward, edge
 rebuild, window slide) runs on the graph's device; the pair walk stays on
 the host.
 
-Not ported yet: the overlay of predicted and true frames (`viz`), which
-needs the h5 episodes and utils/visualize.py; asking for it raises.
+`viz` writes the overlay of predicted and true frames (utils/visualize,
+with cv2) on camera 0 of each push's stored frames (the episodes' NN.npz)
+and merges them into a video.
 
 Usage: python -m adaptigraph_torch.dynamics.rollout --config dynamics/rope
-       --params PARAMS.pt [--steps N] [--no-scan] [--device cpu]
+       --params PARAMS.pt [--steps N] [--no-scan] [--viz] [--device cpu]
 PARAMS.pt is a state_dict saved with torch.save, for example
 `params_from_jax` of a JAX checkpoint.
 """
@@ -178,15 +179,14 @@ def make_rollout_step(model, dataset_config):
 def rollout_push(params, step_fn, graph, fps_idx, pairs, eef_pos, obj_pos,
                  n_his, current_start, current_end, max_nobj,
                  rollout_steps=100, viz_ctx=None, scan=False):
-    """Roll one push; returns the per-step error list. The overlay frames
-    of `viz_ctx` are not ported: passing one raises."""
-    if viz_ctx is not None:
-        raise NotImplementedError(
-            "the rollout overlay needs the h5 episodes and utils/visualize, "
-            "which the port does not have yet")
+    """Roll one push; returns the per-step error list. `viz_ctx` (optional):
+    dict(imgs, intr, extr, save_dir): writes each step's overlay of the
+    predicted points and edges, the true points and the tool point
+    (<step>_both.jpg), as the reference's visualize_graph
+    (rollout/graph.py:44-230)."""
     dev = graph["state"].device
     errors = []
-    for _ in range(rollout_steps):
+    for step_i in range(rollout_steps):
         eef_start = torch.as_tensor(eef_pos[current_start],
                                     dtype=torch.float32, device=dev)
         eef_end = torch.as_tensor(eef_pos[current_end], dtype=torch.float32,
@@ -198,12 +198,59 @@ def rollout_push(params, step_fn, graph, fps_idx, pairs, eef_pos, obj_pos,
         gt = obj_pos[current_end][fps_idx]
         predn = pred.cpu().numpy()[: len(fps_idx)]
         errors.append(float(np.linalg.norm(predn - gt, axis=-1).mean()))
+        if viz_ctx is not None:
+            _write_overlay(viz_ctx, step_i, current_end, predn, graph, gt,
+                           eef_end.cpu().numpy())
         nxt = get_next_pair(pairs, n_his, current_end,
                             n_frames=len(obj_pos), scan=scan)
         if nxt is None:
             break
         current_start, current_end = nxt[n_his - 1], nxt[n_his]
     return errors
+
+
+def _write_overlay(viz_ctx, step_i, frame, predn, graph, gt, eef):
+    import cv2
+
+    from adaptigraph_torch.utils.visualize import overlay_graph
+
+    img = viz_ctx["imgs"][min(frame, len(viz_ctx["imgs"]) - 1)]
+    out = overlay_graph(img, predn, viz_ctx["intr"], viz_ctx["extr"],
+                        edges=(graph["recv"].cpu().numpy(),
+                               graph["send"].cpu().numpy(),
+                               graph["edge_valid"].cpu().numpy()),
+                        gt_kp=gt, eef_kp=eef)
+    cv2.imwrite(os.path.join(viz_ctx["save_dir"], f"{step_i}_both.jpg"),
+                out[..., ::-1])
+
+
+def make_viz_ctx(dataset_config, name, push_i, out_dir, cam=0):
+    """Camera `cam`'s stored frames of episode `name` (its pushes' NN.npz,
+    from 01 on) and the cameras' parameters, for rollout_push's overlay;
+    None when the episode has no cameras or frames (the reference's
+    extract_imgs, rollout/graph.py:20-40)."""
+    from adaptigraph_torch.sim.episode_io import load_data
+
+    data_dir = os.path.join(dataset_config["data_dir"],
+                            dataset_config["data_name"])
+    cam_dir = os.path.join(data_dir, "cameras")
+    if not os.path.exists(os.path.join(cam_dir, "intrinsic.npy")):
+        return None
+    intr = np.load(os.path.join(cam_dir, "intrinsic.npy"))[cam]
+    extr = np.load(os.path.join(cam_dir, "extrinsic.npy"))[cam]
+    imgs = [load_data(f)["observations"]["color"][f"cam_{cam}"] for f in
+            sorted(glob.glob(os.path.join(data_dir, name, "*.npz")))[1:]]
+    if not imgs:
+        return None
+    imgs = np.concatenate(imgs, axis=0)
+    # the shared intrinsics are those of the last campaign's resolution;
+    # they scale linearly with the image (fx = (W/2)/tan(fov/2), cx = W/2)
+    scale = imgs.shape[2] / (2.0 * float(intr[2]))
+    if abs(scale - 1.0) > 1e-6:
+        intr = intr * scale
+    save_dir = os.path.join(out_dir, f"viz_{name}_{push_i + 1}_cam{cam}")
+    os.makedirs(save_dir, exist_ok=True)
+    return {"imgs": imgs, "intr": intr, "extr": extr, "save_dir": save_dir}
 
 
 def rollout(config, params, viz=False, max_episodes=None, rollout_steps=None,
@@ -213,10 +260,8 @@ def rollout(config, params, viz=False, max_episodes=None, rollout_steps=None,
     (CUDA unless given); writes the per-push error files, the median curve
     and the error plot under rollout_config.out_dir, and returns the
     per-push error lists. One np.random.RandomState(42) draws every start
-    graph's radius FPS start, in order."""
-    if viz:
-        raise NotImplementedError(
-            "the rollout overlay (viz) is not ported yet")
+    graph's radius FPS start, in order. `viz` also writes each push's
+    overlay frames and video (make_viz_ctx; cv2)."""
     device = resolve_device(device)
     dataset_config = config["dataset_config"]
     rollout_steps = rollout_steps or int(
@@ -267,10 +312,18 @@ def rollout(config, params, viz=False, max_episodes=None, rollout_steps=None,
             graph, fps_idx = construct_graph(
                 dataset_config, eef_pos, obj_pos, n_his, pair, physics, rng,
                 slotted=slotted, device=device)
+            viz_ctx = (make_viz_ctx(dataset_config, name, pi, out_dir)
+                       if viz else None)
             errors = rollout_push(
                 params, step_fn, graph, fps_idx, pairs_all, eef_pos, obj_pos,
                 n_his, pair[n_his - 1], pair[n_his], max_nobj, rollout_steps,
-                scan=scan)
+                viz_ctx=viz_ctx, scan=scan)
+            if viz_ctx is not None:
+                from adaptigraph_torch.utils.visualize import merge_video
+
+                merge_video(viz_ctx["save_dir"], "both",
+                            os.path.join(viz_ctx["save_dir"], "both.mp4"),
+                            fps=10)
             all_errors.append(errors)
             np.savetxt(os.path.join(out_dir, f"error_{name}_{pi + 1}.txt"),
                        errors)
@@ -327,13 +380,16 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--viz", action="store_true",
+                    help="write each push's overlay frames and video (cv2)")
     ap.add_argument("--no-scan", action="store_true",
                     help="per-push horizon only (the reference's "
                          "get_next_pair_or_break_episode_pushes walk)")
     args = ap.parse_args(argv)
     params = torch.load(args.params, map_location="cpu", weights_only=True)
-    rollout(load_config(args.config), params, rollout_steps=args.steps,
-            scan=not args.no_scan, device=args.device)
+    rollout(load_config(args.config), params, viz=args.viz,
+            rollout_steps=args.steps, scan=not args.no_scan,
+            device=args.device)
 
 
 if __name__ == "__main__":

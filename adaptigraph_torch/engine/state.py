@@ -649,6 +649,25 @@ def trim_cluster_matmul(spec: SceneSpec) -> SceneSpec:
                                                     for t in mm)))
 
 
+def pad_cluster_matmul(mm: ClusterMatmul, ct: int) -> ClusterMatmul:
+    """Re-pad a trimmed membership-matrix pass to `ct` rows with inert rows:
+    zero membership (a zero delta), count 1 (a benign divide), zero rest
+    terms (the rotation of a zero covariance is the identity). A batch of
+    environments aligns its trimmed widths with it."""
+    c = mm.matrix.shape[0]
+    if c >= ct:
+        return mm
+    p = ct - c
+
+    def pad(t, fill=0.0):
+        return torch.cat([t, torch.full((p,) + tuple(t.shape[1:]), fill,
+                                        dtype=t.dtype, device=t.device)])
+
+    return ClusterMatmul(matrix=pad(mm.matrix), com0=pad(mm.com0),
+                         com0_goal=pad(mm.com0_goal), count=pad(mm.count, 1.0),
+                         a00=pad(mm.a00))
+
+
 # --- the state carried across from the JAX package -------------------------
 
 def tree_to_numpy(obj):

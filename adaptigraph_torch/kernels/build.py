@@ -1,10 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its native host libraries.
 
 `csrc/contact.cu` has a plain C interface. It is compiled by `nvcc` into a
 shared library under `_build/` (named by a hash of the sources and flags,
 so a changed source rebuilds) and loaded with `ctypes`. The library links
 against the CUDA runtime only, not against PyTorch, so a build takes
-seconds. Nothing builds when this module is imported.
+seconds.
+
+The host route builds the repository's `native/*.cpp` (the farthest-point
+sampler `fps` and the shared-memory ring `shm_ring`, plain C interfaces)
+with `g++` into the same directory, hashed the same way (`build_host`,
+`load_host`). Nothing builds when this module is imported; a build that
+fails, or a missing compiler, raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "contact.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NATIVE = Path(__file__).resolve().parents[2] / "native"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 # -fmad=false: no contraction of a * b + c into one rounding, so each kernel
 # rounds as its plain PyTorch version does (see the note in contact.cu).
@@ -40,6 +48,7 @@ SIGNATURES = {
 _GEOMETRY_IDS = {"k1": 1, "k2": 2, "k3": 3}
 
 _lib: ctypes.CDLL | None = None
+_host_libs: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -60,6 +69,28 @@ def _target() -> Path:
     return BUILD_DIR / f"contact-{h.hexdigest()[:16]}.so"
 
 
+def _compile(cmd: list, target: Path, what: str, timeout: float) -> str:
+    """Run the compiler command `cmd` (which writes to its last argument,
+    appended here) into a temporary file beside `target`, then move it
+    into place: concurrent builds never load a half-written library.
+    Returns the compiler's output; raises with it when the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*cmd, tmp], capture_output=True, text=True,
+                              timeout=timeout)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed for {what}:\n{log}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return log
+
+
 def build(timeout: float = 600.0) -> str | None:
     """Compile the library unless a current one exists. Returns the
     compiler's output (register and shared-memory use per kernel, from
@@ -68,21 +99,43 @@ def build(timeout: float = 600.0) -> str | None:
     target = _target()
     if target.exists():
         return None
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, timeout=timeout)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return log
+    return _compile([find_nvcc(), *NVCC_FLAGS, str(SOURCE), "-o"], target,
+                    SOURCE.name, timeout)
+
+
+def find_cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("g++ not found (looked at $CXX and on PATH); the "
+                       "native host libraries cannot be built")
+
+
+def _host_target(name: str) -> Path:
+    source = NATIVE / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str, timeout: float = 120.0) -> str | None:
+    """Compile native/<name>.cpp with g++ unless a current library exists.
+    Returns the compiler's output, or None when nothing was compiled."""
+    target = _host_target(name)
+    if target.exists():
+        return None
+    source = NATIVE / f"{name}.cpp"
+    return _compile([find_cxx(), *HOST_FLAGS, str(source), "-o"], target,
+                    source.name, timeout)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library native/<name>.cpp, built first if needed;
+    its entries' types are set by its caller."""
+    if name not in _host_libs:
+        build_host(name)
+        _host_libs[name] = ctypes.CDLL(str(_host_target(name)))
+    return _host_libs[name]
 
 
 def load() -> ctypes.CDLL:

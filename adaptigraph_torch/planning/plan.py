@@ -4,7 +4,8 @@ of adaptigraph_tpu/planning/plan.py.
 Perceive -> MPPI over the sampled-action population -> push -> perceive
 again -> log the interaction -> refine the physics-parameter estimate.
 `--env sim` closes the loop on the simulator (SimPlanEnv: SimEnv on the
-device, perception on its rendered frames).
+device, perception on its rendered frames); `--env real` on the robot
+(planning/real_world's RealEnv: the xArm6 and the camera rig).
 
 The planning frame: x right, y up, z the negated flex z (the action frame
 of SimEnv.sample_action).
@@ -24,10 +25,9 @@ Divergences from the JAX package, by design:
   callable from the action index to a Planner `noise_fn`, replaces those
   draws (the parity tests replay JAX's through it).
 - No `mesh`: one device holds the population.
-- No planning overlay (it needs utils/visualize.py and cv2, which are not
-  ported); the port does not draw it.
-- `--env real` raises NotImplementedError: planning/real_world/ is not
-  ported.
+- The planning overlay (rgb_vis_<i>.png, utils/visualize with cv2) never
+  stops the loop, as in JAX, but the reason it could not be drawn (cv2
+  absent, as on the card's machine) is printed once, not once an action.
 
 Kept as the JAX package has it, for parity:
 - A pcd target is loaded and multiplied by sim_real_ratio, its z not
@@ -258,6 +258,7 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
                                   float(tc["action_lower_lim"][3])]],
                                 np.float32), (int(tc["n_look_ahead"]), 1))
     stats = []
+    overlay_failed = False
     for i in range(start_i, n_actions):
         colors, depths, intrs, extrs = _observe(env)
         state_cur_raw, _ = perception.get_state_cur(colors, depths, intrs,
@@ -314,6 +315,18 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
         print(f"action {i}: act {np.round(act, 3)} reward {reward:.4f} "
               f"pred_error {err_pred:.4f}", flush=True)
 
+        # the planning overlay never stops the control loop
+        try:
+            _write_overlay(os.path.join(save_dir, f"rgb_vis_{i}.png"), tc,
+                           reward_mode, colors[0], intrs[0], extrs[0],
+                           state_cur[:nobj], state_pred[:nobj], act, units,
+                           sim_real_ratio)
+        except Exception as e:
+            if not overlay_failed:
+                print(f"the planning overlay is not drawn: "
+                      f"{type(e).__name__}: {e}", flush=True)
+            overlay_failed = True
+
         xs, zs, xe, ze = decode_action_single(act, float(tc["push_length"]))
         env.step(np.array([xs, zs, xe, ze]))
 
@@ -339,12 +352,38 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
     return stats
 
 
-def make_env(task_config, env_kind, device=None):
-    """The planning environment of `env_kind` ('sim' or 'real') for the
-    task."""
+def _write_overlay(path, tc, reward_mode, color, intr, extr, state_cur,
+                   state_pred, act, units, sim_real_ratio):
+    """The planning overlay of one action (plan_utils.py:104-281): the
+    state, the action's arrows, the target and the prediction, drawn on
+    camera 0's frame with cv2 and written to `path`."""
+    import cv2
+
+    from adaptigraph_torch.utils.visualize import overlay_plan
+
+    tgt_pcd = tgt_box = None
+    if reward_mode == "target" and tc["target_type"] == "box":
+        tgt_box = np.asarray(tc["target"], np.float32) * sim_real_ratio
+    elif reward_mode == "target":
+        tgt_pcd = np.load(tc["target"]) * sim_real_ratio
+    vis = overlay_plan(
+        color, state_cur, state_pred, act, intr, extr, target_state=tgt_pcd,
+        target_box=tgt_box, push_length=float(tc["push_length"]),
+        adj_thresh=float(tc["adj_thresh"]), topk=int(tc["topk"]),
+        units=units, sim_real_ratio=sim_real_ratio)
+    cv2.imwrite(path, vis[..., ::-1])
+
+
+def make_env(task_config, env_kind, device=None, **real_kw):
+    """The planning environment of `env_kind` for the task: 'sim' a
+    SimPlanEnv on `device`, 'real' a RealEnv (planning/real_world) built
+    with `real_kw` (its defaults drive the xArm6 and RealSense cameras;
+    use_robot=False and use_real_cameras=False take the doubles). A
+    RealEnv is started by its caller."""
     if env_kind == "real":
-        raise NotImplementedError(
-            "the real-robot environment (planning/real_world/) is not ported")
+        from adaptigraph_torch.planning.real_world.real_env import RealEnv
+
+        return RealEnv(task_config=task_config, **real_kw)
     dg = load_config(f"data_gen/{task_config['material']}")
     return SimPlanEnv(dg, device=device)
 
@@ -369,6 +408,8 @@ def main(argv=None):
 
     tc = load_config(args.task_config)["task_config"]
     env = make_env(tc, args.env, device=resolve_device(args.device))
+    if args.env == "real":
+        env.start()
     if args.capture_goal:
         pts = capture_goal(env, PerceptionModule(tc), args.capture_goal)
         print(f"captured goal pcd: {len(pts)} points -> {args.capture_goal}")

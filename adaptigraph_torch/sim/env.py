@@ -17,7 +17,8 @@ masses each frame (and xpbd_step packs its tables each frame), positions
 are recorded on the device at every chunk boundary, and the explosion
 guard (NaN, escape beyond 1e3, a grown contact_overflow) is read once a
 group together with the group's recorded positions: the loop's only
-host sync.
+host sync. A group's body is `_push_group`, which sim/batch_env.py's
+BatchSimEnv runs for each of its envs.
 
 Key differences from the reference, by design (as in the JAX package):
 the tool (stick, board or gripper fingers) is driven kinematically along
@@ -286,8 +287,12 @@ class SimEnv:
 
         data = ([], [], [])  # imgs, particles, eef_states
         if save_data:
-            self._store(data, store_tool_pose=(_PARK, np.eye(3, dtype=np.float32)))
+            self._store(data, store_tool_pose=self._parked_tool_pose())
         return data
+
+    def _parked_tool_pose(self):
+        """The tool's pose while parked (its eef and rotation)."""
+        return _PARK, np.eye(3, dtype=np.float32)
 
     # ---------- the push loop ----------
 
@@ -306,86 +311,119 @@ class SimEnv:
             pos[:, arm], quat[:, arm] = lp, lq
         return pos, quat
 
+    def _push_inputs(self, shapes, eef_c, rot_c, gap_c, lp_c, lq_c, att_c,
+                     attach_idx, attach_rel, n_active, has_attach):
+        """A push's device inputs over its first n_active chunks (the
+        per-chunk (mc, CHUNK, ...) arrays of _push_fn): every shape slot's
+        pose at every frame, and the attachment (eef, rotation, on flag,
+        indices, offsets) or None on the attach-free path."""
+        dev = self.device
+        run = slice(0, n_active)
+        eef_d = _f32(eef_c[run].reshape(-1, 3), dev)
+        rot_d = _f32(rot_c[run].reshape(-1, 3, 3), dev)
+        traj = self._shape_traj(
+            shapes, eef_d, rot_d, _f32(gap_c[run].reshape(-1), dev),
+            _f32(lp_c[run].reshape(-1, self.n_arm, 3), dev),
+            _f32(lq_c[run].reshape(-1, self.n_arm, 4), dev))
+        attach = None
+        if has_attach:
+            attach = (eef_d, rot_d, _f32(att_c[run].reshape(-1), dev) > 0,
+                      torch.as_tensor(np.asarray(attach_idx),
+                                      dtype=torch.int64, device=dev),
+                      _f32(attach_rel, dev))
+        return traj, attach
+
+    def _push_group(self, st, spec, lo, hi, traj, attach):
+        """Chunks lo..hi-1 of a push, frame by frame: the body of one JAX
+        group program. The attach-free path packs its contact tables once;
+        the attach path moves the grasped particles with the tool each frame
+        (and xpbd_step packs its tables each frame). Returns (state, the
+        positions at each chunk end (hi - lo, N, 3) on the device, the
+        explosion guard: NaN, escape beyond 1e3 or a grown contact_overflow,
+        a device bool)."""
+        pos_traj, quat_traj = traj
+        overflow0 = torch.as_tensor(st.contact_overflow, device=self.device)
+        tables0 = (pack_tables_for(st.particles, spec) if attach is None
+                   else None)
+        recs = []
+        for t in range(lo * CHUNK, hi * CHUNK):
+            st = st._replace(shapes=st.shapes.moved_to(pos_traj[t],
+                                                       quat_traj[t]))
+            if attach is not None:
+                # attachment: move the grasped particles with the tool
+                eef_d, rot_d, att_on, a_idx, a_rel = attach
+                p = st.particles
+                apos = eef_d[t][None, :] + (rot_d[t] @ a_rel.T).T
+                tgt = torch.where(att_on[t], apos, p.pos[a_idx])
+                w = torch.where(att_on[t], 0.0, p.inv_mass[a_idx])
+                st = st._replace(particles=p._replace(
+                    pos=p.pos.index_put((a_idx,), tgt),
+                    inv_mass=p.inv_mass.index_put((a_idx,), w)))
+            st = xpbd_step(st, spec, self.substeps, self.iterations,
+                           rest_filter=self.rest_filter,
+                           n_shapes_active=self.n_shapes_fused,
+                           packed_tables=tables0)
+            if (t + 1) % CHUNK == 0:
+                recs.append(st.particles.pos)
+        p = st.particles
+        bad = (torch.isnan(p.pos[:, 0]).any()
+               | (torch.abs(torch.where(p.active[:, None], p.pos, 0.0)).amax()
+                  > 1e3)
+               | (torch.as_tensor(st.contact_overflow, device=self.device)
+                  > overflow0))
+        return st, torch.stack(recs), bad
+
+    def _chunked(self, mc, eef_traj, rot_traj, gap_traj, attach_active,
+                 link_pos_traj, link_quat_traj):
+        """A push's per-frame arrays as (mc, CHUNK, ...) chunks; no link
+        track (arm off or parked) holds the rest pose."""
+        total = mc * CHUNK
+        if link_pos_traj is None:
+            if self.n_arm:
+                link_pos_traj = np.tile(self._rest_link_pos[None], (total, 1, 1))
+                link_quat_traj = np.tile(self._rest_link_quat[None],
+                                         (total, 1, 1))
+            else:
+                link_pos_traj = np.zeros((total, 0, 3), np.float32)
+                link_quat_traj = np.zeros((total, 0, 4), np.float32)
+        return (np.asarray(eef_traj).reshape(mc, CHUNK, 3),
+                np.asarray(rot_traj).reshape(mc, CHUNK, 3, 3),
+                np.asarray(gap_traj).reshape(mc, CHUNK),
+                np.asarray(link_pos_traj).reshape(mc, CHUNK, self.n_arm, 3),
+                np.asarray(link_quat_traj).reshape(mc, CHUNK, self.n_arm, 4),
+                np.asarray(attach_active).reshape(mc, CHUNK))
+
     def _push_fn(self, state, spec, eef_traj, rot_traj, gap_traj, attach_idx,
                  attach_rel, attach_active, n_chunks_active=None,
                  max_chunks_override=None, link_pos_traj=None,
                  link_quat_traj=None, attach_path=None):
         """Host loop over chunk groups: runs only the chunks the push (and
-        settle) needs and pads the remaining records with the last one.
-        `attach_path`: run the grasp path (per-frame attachment and table
-        pack); None takes it iff an attachment is active. Returns (state,
-        positions at each chunk end (mc, N, 3), eef and tool rotation at
-        each chunk end, [exploded])."""
+        settle) needs, stops after a group the guard flags, and pads the
+        remaining records with the last one. `attach_path`: run the grasp
+        path (per-frame attachment and table pack); None takes it iff an
+        attachment is active. Returns (state, positions at each chunk end
+        (mc, N, 3), eef and tool rotation at each chunk end, [exploded])."""
         t0 = time.perf_counter()
-        dev = self.device
         g = self.chunk_group
         mc = max_chunks_override or self.max_chunks
-        total = mc * CHUNK
-        eef_c = np.asarray(eef_traj).reshape(mc, CHUNK, 3)
-        rot_c = np.asarray(rot_traj).reshape(mc, CHUNK, 3, 3)
-        gap_c = np.asarray(gap_traj).reshape(mc, CHUNK)
-        att_c = np.asarray(attach_active).reshape(mc, CHUNK)
-        if link_pos_traj is None:  # arm off or parked: hold the rest pose
-            if self.n_arm:
-                link_pos_traj = np.tile(self._rest_link_pos[None], (total, 1, 1))
-                link_quat_traj = np.tile(self._rest_link_quat[None], (total, 1, 1))
-            else:
-                link_pos_traj = np.zeros((total, 0, 3), np.float32)
-                link_quat_traj = np.zeros((total, 0, 4), np.float32)
-        lp_c = np.asarray(link_pos_traj).reshape(mc, CHUNK, self.n_arm, 3)
-        lq_c = np.asarray(link_quat_traj).reshape(mc, CHUNK, self.n_arm, 4)
+        eef_c, rot_c, gap_c, lp_c, lq_c, att_c = self._chunked(
+            mc, eef_traj, rot_traj, gap_traj, attach_active, link_pos_traj,
+            link_quat_traj)
         n_active = n_chunks_active or mc
         n_groups = -(-n_active // g)
         # a host-side fact: only grasp pushes mutate inv_mass mid-push
         has_attach = (bool(np.any(att_c[:n_active])) if attach_path is None
                       else attach_path)
-        run = slice(0, n_active)
-        eef_d = _f32(eef_c[run].reshape(-1, 3), dev)
-        rot_d = _f32(rot_c[run].reshape(-1, 3, 3), dev)
-        pos_traj, quat_traj = self._shape_traj(
-            state.shapes, eef_d, rot_d, _f32(gap_c[run].reshape(-1), dev),
-            _f32(lp_c[run].reshape(-1, self.n_arm, 3), dev),
-            _f32(lq_c[run].reshape(-1, self.n_arm, 4), dev))
-        if has_attach:
-            att_on = _f32(att_c[run].reshape(-1), dev) > 0
-            a_idx = torch.as_tensor(np.asarray(attach_idx), dtype=torch.int64,
-                                    device=dev)
-            a_rel = _f32(attach_rel, dev)
+        traj, attach = self._push_inputs(state.shapes, eef_c, rot_c, gap_c,
+                                         lp_c, lq_c, att_c, attach_idx,
+                                         attach_rel, n_active, has_attach)
         pos_rec, nan_any = [], False
         st = state
         for gi in range(n_groups):
             lo, hi = gi * g, min(gi * g + g, n_active)
-            overflow0 = torch.as_tensor(st.contact_overflow, device=dev)
-            tables0 = None if has_attach else pack_tables_for(st.particles,
-                                                              spec)
-            recs = []
-            for t in range(lo * CHUNK, hi * CHUNK):
-                st = st._replace(shapes=st.shapes.moved_to(pos_traj[t],
-                                                           quat_traj[t]))
-                if has_attach:
-                    # attachment: move the grasped particles with the tool
-                    p = st.particles
-                    apos = eef_d[t][None, :] + (rot_d[t] @ a_rel.T).T
-                    tgt = torch.where(att_on[t], apos, p.pos[a_idx])
-                    w = torch.where(att_on[t], 0.0, p.inv_mass[a_idx])
-                    st = st._replace(particles=p._replace(
-                        pos=p.pos.index_put((a_idx,), tgt),
-                        inv_mass=p.inv_mass.index_put((a_idx,), w)))
-                st = xpbd_step(st, spec, self.substeps, self.iterations,
-                               rest_filter=self.rest_filter,
-                               n_shapes_active=self.n_shapes_fused,
-                               packed_tables=tables0)
-                if (t + 1) % CHUNK == 0:
-                    recs.append(st.particles.pos)
-            # explosion guard: NaN or escape far outside the workspace, or
-            # dropped contacts from block-sweep overflow
-            p = st.particles
-            bad = (torch.isnan(p.pos[:, 0]).any()
-                   | (torch.abs(torch.where(p.active[:, None], p.pos, 0.0)).amax()
-                      > 1e3)
-                   | (torch.as_tensor(st.contact_overflow, device=dev)
-                      > overflow0))
-            pos_rec.extend(torch.stack(recs).cpu().numpy())
+            st, recs, bad = self._push_group(st, spec, lo, hi, traj, attach)
+            # the loop's only host sync: the group's records and its guard
+            pos_rec.extend(recs.cpu().numpy())
             if bool(bad):
                 nan_any = True
                 break

@@ -61,7 +61,19 @@ pushes, 2 iterations, one action, the physics estimate refitted):
 perceive, MPPI, push (K1 8 times and K2 once a frame), perceive, log,
 refit; every perceived point near the rope, the chosen push's prediction
 against the CPU's, the incumbent kept, the artefacts plan() writes; the
-seconds an action takes in each stage. Each phase prints one JSON line. The last lines are
+seconds an action takes in each stage. Then batched episodes
+(batch_path): sim.batch_env.generate_batch over two rope episodes in
+lockstep at the sim path's scene and cuts, one push each, env 0 the sim
+path's own episode: both episodes written, read back and preprocessed,
+env 0's settle and push equal to the sim path's lone run, no NaN flag,
+K1 8 times and K2 once an env-frame; push frames/s summed over the envs,
+the gate render's ms. Then the native host libraries (native_path):
+native/fps.cpp and native/shm_ring.cpp built with the machine's g++,
+FPS's index lists native against numpy on the sim path's rope, its 4
+captured camera frames through a shared-memory ring from a second
+process byte for byte, a RealEnv with its doubles (4 camera processes,
+FakeXarm) read and pushed once, no segment left behind. Each phase
+prints one JSON line. The last lines are
 the kernel table, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Any failed phase, or the internal deadline,
 exits non-zero without the result line. Without a CUDA device it fails at
@@ -81,7 +93,13 @@ import time
 import traceback
 
 import numpy as np
-import torch
+
+# kineto tears CUPTI down at the end of each torch.profiler session: left
+# up, it slowed the process's later launches by 16-30% after one session
+# (7-13% torn down; PERF.md)
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
+import torch  # noqa: E402
 
 DEVICE = "cuda:0"
 DEADLINE_S = 300.0  # build plus every phase
@@ -235,6 +253,27 @@ LOOP_PERCEIVE_DIST, LOOP_MOVED, LOOP_PUSHED = 0.5, 1e-3, 0.05
 # one step under torch.profiler.
 TRAIN_K, TRAIN_GRAD_B, TRAIN_GRAD_RTOL = 8, 8, 1e-5
 TRAIN_TIME_CHUNKS, TRAIN_SPLIT_STEPS = 3, 3
+# batched episodes (batch_path): sim.batch_env.generate_batch over
+# BATCH_SEEDS, one push each (n_timestep 1), at the sim path's scene
+# (configs/data_gen/rope.yaml at SIM_CUTS: the rope at its 3,072 cap, 11
+# shape slots, 4 cameras at 360 x 360). Env 0 takes the sim path's episode
+# SIM_SEED, so the sim path's own run is the lone SimEnv it is held to: its
+# settled positions and its first push's chunk-end records equal
+# (torch.equal) where the batch re-padded nothing, within BATCH_ATOL where
+# it re-padded env 0's spec. Seed 74 (2,730 particles): its trimmed
+# cluster matrix (24 rows) and incidence tables are no wider than seed 3's,
+# so nothing is re-padded; its first push starts 3.6 from the arm's base
+# and, like seed 3's, needs 3 of the 4 chunks (seed 7's needed all 4: 80
+# more env-frames a batch)
+BATCH_SEEDS, BATCH_ATOL = (SIM_SEED, 74), 1e-4
+# the native host libraries (native_path): FPS's index lists on the sim
+# path's settled rope, native against numpy (NATIVE_FPS_N points from
+# index 0; the radius form at NATIVE_FPS_RADIUS from a RandomState(0)
+# start); the sim path's 4 captured camera frames through a shared-memory
+# ring from a second process, equal byte for byte; a RealEnv with its
+# doubles (4 camera processes, FakeXarm) at the sim path's 360 x 360, its
+# frames aligned within NATIVE_MAX_SKEW s, one push through FakeXarm
+NATIVE_FPS_N, NATIVE_FPS_RADIUS, NATIVE_MAX_SKEW = 500, 0.2, 0.1
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_S = 67e12  # H100 SXM float32 outside the tensor cores
 # float32 operations a pair costs: detection (differences, squares, sums,
@@ -1436,6 +1475,7 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None,
             return step(st, *args, **kw)
 
         senv.xpbd_step = keeping
+        pushes = keep_pushes(env)
         reset_counts()
         try:
             env, secs = sync_time(lambda: gen_episode(cfg, seed, True, tmp,
@@ -1443,6 +1483,7 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None,
         finally:
             senv.xpbd_step = step
         counts = read_counts()
+        out["lone"], out["n_active"] = pushes, env.n_active
         n_frames = frames[0]
         settle = -(-env.settle_steps // senv.CHUNK) * senv.CHUNK
         push, plan, cap = (env.stats[k] for k in ("push", "plan", "capture"))
@@ -1524,6 +1565,10 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None,
                    and pairs.shape[0] >= 1 and np.array_equal(
                        e1["action"], ep["actions"][0]))
         emit(r)
+        # the last captured frame's 4 camera views, for the native path
+        obs = e1["observations"]
+        out["frames"] = [(obs["color"][f"cam_{c}"][-1],
+                          obs["depth"][f"cam_{c}"][-1]) for c in range(4)]
         if not r["ok"]:
             raise RuntimeError("the episode as written is not as expected")
         if after_episode is not None:
@@ -1718,6 +1763,277 @@ def sim_phases(dev, lib, config=None, seed=SIM_SEED, dyn_config=None,
     emit({"phase": "sim_kernel_times", "ok": True, "times_ms": timed["times"],
           **out["detail"]})
     return out
+
+
+def keep_pushes(env):
+    """Keep what a lone SimEnv's pushes did: `env.plan_push` and
+    `env._push_fn` wrapped to record each push's action and each call's
+    chunk-end records over the chunks it ran. Returns {"settled": the
+    positions after the settle, "pushes": [(action, records)]}, filled as
+    the env runs."""
+    kept = {"settled": None, "pushes": []}
+    plan_push, push_fn = env.plan_push, env._push_fn
+    actions = []
+
+    def planning(action):
+        actions.append(np.asarray(action).copy())
+        return plan_push(action)
+
+    def pushing(*a, **kw):
+        out = push_fn(*a, **kw)
+        rec = out[1][:kw.get("n_chunks_active") or len(out[1])].copy()
+        if kept["settled"] is None:
+            kept["settled"] = rec[-1]
+        else:
+            kept["pushes"].append((actions[-1], rec))
+        return out
+
+    env.plan_push, env._push_fn = planning, pushing
+    return kept
+
+
+def batch_phases(dev, config=None, seeds=BATCH_SEEDS, lone=None):
+    """Batched episodes on the card: sim.batch_env.generate_batch over
+    `seeds`, one push each. Gates: both episodes written, read back and
+    preprocessed; env 0's settle and first push equal to the lone run
+    `lone` (what keep_pushes kept of a lone SimEnv's episode of seeds[0]);
+    no NaN flag; K1 substeps x iterations and K2
+    once an env-frame, K3 and K4 none. Returns what the kernels line
+    needs."""
+    import shutil
+    import tempfile
+
+    from adaptigraph_torch.dynamics.preprocess import preprocess
+    from adaptigraph_torch.sim import batch_env
+    from adaptigraph_torch.sim.episode_io import load_data
+    from adaptigraph_torch.utils import load_config
+
+    _phase[0] = "batch_path"
+    cfg = config or load_config("data_gen/rope")
+    if config is None:
+        cfg["dataset"].update(SIM_CUTS)
+    d = cfg["dataset"]
+    calls, renders = [], []
+    run, render = (batch_env.BatchSimEnv.run_pushes,
+                   batch_env.BatchSimEnv.render_all)
+
+    def running(self, actions):
+        out = run(self, actions)
+        calls.append((actions, out[0], out[2], self.stats))
+        return out
+
+    def rendering(self):
+        out = render(self)
+        renders.append(self.render_seconds)
+        return out
+
+    batch_env.BatchSimEnv.run_pushes = running
+    batch_env.BatchSimEnv.render_all = rendering
+    tmp = tempfile.mkdtemp(prefix="batch_path_")
+    try:
+        reset_counts()
+        try:
+            benv, secs = sync_time(lambda: batch_env.generate_batch(
+                cfg, list(seeds), tmp, device=dev))
+        finally:
+            batch_env.BatchSimEnv.run_pushes = run
+            batch_env.BatchSimEnv.render_all = render
+        counts = read_counts()
+        b = len(seeds)
+        env0 = benv.envs[0]
+        iters = env0.substeps * env0.iterations
+        env_frames = sum(st["frames_per_env"] for *_, st in calls) * b
+        push_calls = calls[1:]  # the first is the settle
+        push_frames = sum(st["frames_per_env"] for *_, st in push_calls) * b
+        push_s = sum(st["seconds"] for *_, st in push_calls)
+        flags = [bool(f.any()) for _, _, f, _ in calls]
+        # env 0 against the lone run: the settle, then the first push
+        settled = calls[0][1][0][-1]
+        act0, rec0 = calls[1][0][0], calls[1][1][0]
+        lone_act, lone_rec = lone["pushes"][0]
+        n = min(len(rec0), len(lone_rec))
+        repadded = bool(benv.repadded[0])
+        same_action = act0 is not None and np.array_equal(act0, lone_act)
+        if repadded:
+            settle_err = float(np.abs(settled - lone["settled"]).max())
+            push_err = float(np.abs(rec0[:n] - lone_rec[:n]).max())
+            env0_ok = same_action and max(settle_err, push_err) <= BATCH_ATOL
+        else:
+            env0_ok = (same_action
+                       and np.array_equal(settled, lone["settled"])
+                       and np.array_equal(rec0[:n], lone_rec[:n]))
+        # the episodes as written, read back and preprocessed
+        read = 0
+        for seed in seeds:
+            epi = os.path.join(tmp, d["obj"], f"{int(seed):06}")
+            e0, e1 = (load_data(os.path.join(epi, f"{i:02}.npz"))
+                      for i in range(2))
+            read += int(e0["positions"].ndim == 3 and e1["positions"].ndim == 3
+                        and e1["positions"].shape[1:] == e0["positions"].shape[1:])
+        prep_files = []
+        if config is None:
+            dyn = load_config("dynamics/rope")
+            dyn["dataset_config"].update(
+                data_dir=tmp, prep_data_dir=os.path.join(tmp, "prep"))
+            preprocess(dyn)
+            prep_files = sorted(os.listdir(os.path.join(
+                tmp, "prep", dyn["dataset_config"]["data_name"],
+                "frame_pairs")))
+        st = benv.episode_stats
+        r = {"phase": "batch_path", "seeds": list(seeds),
+             "cuts": {**SIM_CUTS} if config is None else "test config",
+             "n_active": [e.n_active for e in benv.envs],
+             "repadded": list(benv.repadded),
+             "attempts": st["attempts"], "stuck": st["stuck"],
+             "actions": st["actions"][:, 0].tolist(),
+             "seconds": secs, "calls": len(calls),
+             "frames_per_env": [c[3]["frames_per_env"] for c in calls],
+             "env_frames": env_frames, "launches": counts,
+             "launches_per_env_frame": {k: v / env_frames
+                                        for k, v in counts.items()},
+             "push_frames_per_s_all_envs": push_frames / push_s,
+             "push_frames_per_s_per_env": push_frames / push_s / b,
+             "gate_render_ms": [1e3 * x for x in renders],
+             "nan_flags": flags, "env0_same_action": bool(same_action),
+             "env0_equal_to_lone": bool(env0_ok),
+             "env0_compared_chunks": n, "episodes_read": read,
+             "frame_pair_files": prep_files}
+        r["ok"] = bool(
+            env0_ok and read == b and not any(flags)
+            and not any(st["stuck"])
+            and counts["k1"] == iters * env_frames
+            and counts["k2"] == env_frames
+            and counts["k3"] == 0 and counts["k4"] == 0
+            and (config is not None or len(prep_files) == b))
+        emit(r)
+        if not r["ok"]:
+            raise RuntimeError("the batch path's check failed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"counts": counts, "env_frames": env_frames,
+            "env0_equal": bool(env0_ok), "episodes_read": read,
+            "seconds": secs, "push_frames_per_s": r["push_frames_per_s_all_envs"],
+            "gate_render_ms": r["gate_render_ms"]}
+
+
+def _ring_producer(name, specs, frames):
+    """A second process's producer: the frames into the named ring."""
+    from adaptigraph_torch.planning.real_world.shared_memory import (
+        SharedMemoryRingBuffer)
+
+    ring = SharedMemoryRingBuffer(name, specs, capacity=8, create=False)
+    for i, (color, depth) in enumerate(frames):
+        ring.put({"color": color, "depth": depth, "seq": np.array([i])})
+    ring.close(unlink=False)
+
+
+def _shm_names():
+    return sorted(f for f in os.listdir("/dev/shm") if f.startswith("agtorch"))
+
+
+def native_phases(frames, points):
+    """The native host libraries on the card's machine: both built with
+    its compiler; FPS's index lists native against numpy on `points`;
+    `frames` (4 (uint8 colour, uint16 depth) camera frames) through a ring
+    from a second process, equal byte for byte; a RealEnv with its doubles
+    started, read, pushed once through FakeXarm and stopped; no shared
+    memory left behind."""
+    import multiprocessing as mp
+    import tempfile
+
+    from adaptigraph_torch.kernels import build
+    from adaptigraph_torch.planning.real_world.real_env import RealEnv
+    from adaptigraph_torch.planning.real_world.shared_memory import (
+        SharedMemoryRingBuffer)
+    from adaptigraph_torch.utils.host_fps import fps_rad_idx, fps_with_idx
+
+    _phase[0] = "native_path"
+    shm0 = _shm_names()
+    # a fresh build of both with the g++ where it runs, into a scratch
+    # directory (the libraries the paths load may already be built)
+    build_dir = build.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="native_build_") as scratch:
+        build.BUILD_DIR = type(build_dir)(scratch)
+        try:
+            t0 = time.perf_counter()
+            compiled = {name: build.build_host(name) is not None
+                        for name in ("fps", "shm_ring")}
+            build_s = time.perf_counter() - t0
+        finally:
+            build.BUILD_DIR = build_dir
+
+    t0 = time.perf_counter()
+    _, nat = fps_with_idx(points, NATIVE_FPS_N)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, plain = fps_with_idx(points, NATIVE_FPS_N, native=False)
+    plain_s = time.perf_counter() - t0
+    _, rad_nat = fps_rad_idx(points, NATIVE_FPS_RADIUS, np.random.RandomState(0))
+    _, rad_plain = fps_rad_idx(points, NATIVE_FPS_RADIUS,
+                               np.random.RandomState(0), native=False)
+    fps_ok = (np.array_equal(nat, plain) and np.array_equal(rad_nat, rad_plain)
+              and len(nat) == NATIVE_FPS_N)
+
+    h, w = frames[0][1].shape
+    specs = {"color": ((h, w, 3), np.uint8), "depth": ((h, w), np.uint16),
+             "seq": ((1,), np.int64)}
+    name = f"agtorch_smoke_{os.getpid()}"
+    ring = SharedMemoryRingBuffer(name, specs, capacity=8)
+    try:
+        t0 = time.perf_counter()
+        proc = mp.Process(target=_ring_producer, args=(name, specs, frames))
+        proc.start()
+        proc.join(30)
+        got = ring.get_last_k(len(frames))
+        ring_s = time.perf_counter() - t0
+        ring_ok = (proc.exitcode == 0 and len(got) == len(frames) and all(
+            g["color"].tobytes() == c.tobytes()
+            and g["depth"].tobytes() == dd.tobytes()
+            and int(g["seq"][0]) == i
+            for i, (g, (c, dd)) in enumerate(zip(got, frames))))
+    finally:
+        ring.close()
+
+    t0 = time.perf_counter()
+    calib = tempfile.mkdtemp(prefix="native_calib_")
+    env = RealEnv(task_config={"sim_real_ratio": 10.0,
+                               "clipping_height": -0.06},
+                  use_robot=False, use_real_cameras=False,
+                  resolution=(h, w), calib_dir=calib)
+    env.start(wait_ready=20.0)
+    try:
+        raw = env.cameras.get_obs(max_skew=NATIVE_MAX_SKEW)
+        ts = [f["timestamp"][0] for f in raw.values()]
+        colors, depths = env.get_obs()
+        pushed = env.step(np.array([-1.0, 0.5, 0.5, 0.5]))
+        pose = env.robot.get_pose()
+    finally:
+        env.stop()
+        os.rmdir(calib)
+    env_s = time.perf_counter() - t0
+    left = [f for f in _shm_names() if f not in shm0]
+    r = {"phase": "native_path", "compiled": compiled,
+         "build_seconds": build_s, "fps_points": len(points),
+         "fps_native_ms": 1e3 * native_s, "fps_plain_ms": 1e3 * plain_s,
+         "fps_equal": bool(fps_ok), "fps_radius_points": len(rad_nat),
+         "ring_frames": len(frames), "ring_bytes": sum(
+             c.nbytes + dd.nbytes for c, dd in frames),
+         "ring_equal_bytes": bool(ring_ok), "ring_seconds": ring_s,
+         "real_env_cameras": len(raw), "real_env_skew_s": max(ts) - min(ts),
+         "real_env_colors": [list(colors.shape), str(colors.dtype)],
+         "real_env_depths": [list(depths.shape), str(depths.dtype)],
+         "real_env_push": bool(pushed), "fake_xarm_pose_mm": pose.tolist(),
+         "real_env_seconds": env_s, "shm_left": left}
+    r["ok"] = bool(
+        all(compiled.values()) and fps_ok and ring_ok and len(raw) == 4
+        and max(ts) - min(ts) <= NATIVE_MAX_SKEW
+        and colors.shape == (4, h, w, 3) and colors.dtype == np.uint8
+        and depths.shape == (4, h, w) and depths.dtype == np.float32
+        and pushed and np.allclose(pose[:2], [50.0, 50.0]) and not left)
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the native path's check failed")
+    return r
 
 
 def split_ms(parts, reps):
@@ -3195,6 +3511,8 @@ def main():
     simt = sim["times"]
     train = sim["after_episode"]
     loop = loop_phases(dev)
+    batch = batch_phases(dev, lone=sim["lone"])
+    native_phases(sim["frames"], sim["lone"]["settled"][:sim["n_active"]])
 
     # K2's edges: the granular design point's first frame after landing
     # (lists up to 20 blocks long, none kept), bench.py's pinned rope
@@ -3239,7 +3557,8 @@ def main():
                "sparse_path": sparse_counts,
                "plan_path": plan["contact_launches"],
                "loop_path": loop["counts"],
-               "train_path": train["counts"]}
+               "train_path": train["counts"],
+               "batch_path": batch["counts"]}
 
     def total(key):
         return sum(c[key] for c in by_path.values())
@@ -3289,6 +3608,7 @@ def main():
     emit({"phase": "plan_numbers", "plan_path": plan, "card": smi})
     emit({"phase": "loop_numbers", "loop_path": loop, "card": smi})
     emit({"phase": "train_numbers", "train_path": train, "card": smi})
+    emit({"phase": "batch_numbers", "batch_path": batch, "card": smi})
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,
          "replaces": f"{pk}:631",

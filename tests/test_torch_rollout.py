@@ -243,7 +243,8 @@ def test_rollout_end_to_end_equals_jax(rope):
             assert np.array_equal(x, y), step
 
 
-def test_rollout_entry_points_raise_without_a_device(rope, monkeypatch):
+def test_rollout_entry_points_raise_without_a_device(rope, monkeypatch,
+                                                     tmp_path):
     eef, obj, phys = _episode(rope)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -252,8 +253,14 @@ def test_rollout_entry_points_raise_without_a_device(rope, monkeypatch):
                               np.random.RandomState(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         troll.rollout(rope["tcfg"], rope["sd"], rollout_steps=1)
-    with pytest.raises(NotImplementedError):
-        troll.rollout(rope["tcfg"], rope["sd"], viz=True, device="cpu")
+    # viz is ported: the restored compact episodes hold no frames and no
+    # cameras, so it rolls on and draws nothing
+    cfg = rope["tcfg"].override({}, rollout_config={"out_dir": str(tmp_path)})
+    errs = troll.rollout(cfg, rope["sd"], viz=True, rollout_steps=1,
+                         max_episodes=1, device="cpu")
+    assert errs and all(len(e) == 1 for e in errs)
+    assert not any(f.startswith("viz_")
+                   for f in os.listdir(tmp_path / "rope"))
 
 
 def test_smoke_gnn_path_runs_on_the_cpu(rope, monkeypatch):
