@@ -18,6 +18,13 @@ Structure on the device:
     otherwise `train` runs the per-step host loop over
     DynDataset.raw_batch.
 
+On a mesh (parallel/mesh.py's 1-D data mesh, one process a device) each
+rank draws the whole batch's indices and graph draws, keeps its own rows
+(shard_batch's rule: a batch the mesh does not divide stays whole on
+every rank) and averages the gradient and the loss over the ranks,
+summed in rank order, before Adam, which then steps alike on every rank.
+Rank 0 alone writes the checkpoints and the loss files, and prints.
+
 Batch indices come from np.random.RandomState(random_seed) in the JAX
 package's order, so both packages train on the same pairs; the graph
 draws cannot replay JAX's threefry stream. Adam is torch.optim.Adam with
@@ -28,6 +35,9 @@ model's state_dict (what the rollout and planning CLIs take as
 
 Usage: python -m adaptigraph_torch.dynamics.train --config dynamics/rope
        [--epochs N] [--iters N] [--batch N] [--resume] [--device cpu]
+On several devices: torchrun --nproc-per-node N -m
+adaptigraph_torch.dynamics.train ... (parallel.mesh.init_from_env starts
+the process group from torchrun's environment).
 """
 
 from __future__ import annotations
@@ -41,12 +51,17 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from adaptigraph_torch.dynamics.dataset import (DynDataset, draw_prepare,
                                                 make_prepare_fn)
 from adaptigraph_torch.dynamics.model import (DynamicsPredictor,
                                               model_config_from_yaml)
+from adaptigraph_torch.parallel.mesh import (check_data_mesh, init_from_env,
+                                             local_rows, make_mesh, mean_over,
+                                             replicate, shard_batch,
+                                             world_size)
 from adaptigraph_torch.utils import load_config
 from adaptigraph_torch.utils.device import full_f32_matmul, resolve_device
 from adaptigraph_torch.utils.profiling import plot_loss_curves
@@ -132,11 +147,32 @@ def make_optimizer(params, lr: float, lr_schedule=None, decay_steps: int = 1):
     return opt, sched
 
 
-def make_train_step(model, n_future: int, optimizer, scheduler=None):
+def mean_grads_and_loss(params, loss, mesh):
+    """Average the gradients of `params` (a dict of tensors after
+    backward) and `loss` over the mesh's ranks in one gather: each rank's
+    gradients flattened into one vector with its loss, summed in rank
+    order. Writes the means into the .grad tensors; returns the mean
+    loss."""
+    grads = [p.grad for p in params.values() if p.grad is not None]
+    flat = mean_over(torch.cat([g.reshape(-1) for g in grads]
+                               + [loss.detach().reshape(1)]), mesh)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return flat[-1]
+
+
+def make_train_step(model, n_future: int, optimizer, scheduler=None,
+                    mesh=None):
     """(train_step, eval_step) on `model`'s own parameters:
     train_step(batch) takes one Adam update (and a scheduler step) and
     returns the loss before it; eval_step(batch) the loss, no gradient.
-    Both return a 0-dim tensor on the device (no host sync)."""
+    Both return a 0-dim tensor on the device (no host sync). With a
+    `mesh`, the batch is this rank's rows of the global batch: the
+    gradients and the loss are averaged over the ranks
+    (mean_grads_and_loss) before Adam, and both steps return the global
+    loss."""
     unrolled_loss = make_unrolled_loss(model, n_future)
     params = dict(model.named_parameters())
 
@@ -144,16 +180,28 @@ def make_train_step(model, n_future: int, optimizer, scheduler=None):
         optimizer.zero_grad(set_to_none=True)
         loss = unrolled_loss(params, batch)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = mean_grads_and_loss(params, loss, mesh)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return loss.detach()
+        return loss
 
     def eval_step(batch):
         with torch.no_grad():
-            return unrolled_loss(params, batch)
+            loss = unrolled_loss(params, batch)
+            return loss if mesh is None else mean_over(loss, mesh)
 
     return train_step, eval_step
+
+
+def split_batch(raw, draws, mesh):
+    """This rank's rows of a whole batch's raw windows and graph draws
+    (both as drawn on every rank); both whole without a mesh."""
+    if mesh is None:
+        return raw, draws
+    return shard_batch(raw, mesh), shard_batch(draws, mesh)
 
 
 def device_dataset(datasets: dict, max_bytes: float = 6e9, device=None):
@@ -206,22 +254,25 @@ def _gather_raw(common, pairs, idx_row):
 
 
 def make_train_chunk(model, n_future: int, optimizer, dataset: DynDataset,
-                     common, pairs, generator, scheduler=None):
+                     common, pairs, generator, scheduler=None, mesh=None):
     """(train_chunk, eval_chunk) over the device-resident data:
     train_chunk(idxs) takes K (gather -> graph prep -> forward and
     backward -> Adam) steps for the (K, B) index table `idxs`, its graph
     draws from `generator`, and returns the K losses as a (K,) tensor on
     the device; eval_chunk(idxs) the K losses with no update. Nothing in
-    a chunk waits on the host."""
+    a chunk waits on the host. With a `mesh`, every rank draws the whole
+    batch's graph draws and prepares its own rows (split_batch); the
+    steps average over the ranks (make_train_step)."""
     train_step, eval_step = make_train_step(model, n_future, optimizer,
-                                            scheduler)
+                                            scheduler, mesh)
     prepare = make_prepare_fn(dataset,
                               slotted=model.cfg.aggregation in _SLOTTED)
     dev = common["obj"].device
 
     def batch_graphs(idx_row):
         raw = _gather_raw(common, pairs, idx_row)
-        return prepare(raw, draw_prepare(generator, raw, dataset))
+        draws = draw_prepare(generator, raw, dataset)
+        return prepare(*split_batch(raw, draws, mesh))
 
     def run(step, idxs):
         idxs = torch.as_tensor(idxs).to(dev)
@@ -287,6 +338,41 @@ def _restore_optimizer(path, optimizer, scheduler, lr_schedule, device):
         scheduler.load_state_dict(saved["scheduler"])
 
 
+def _quiet(*args, **kwargs):
+    """print's stand-in on ranks other than 0."""
+
+
+def _write_epoch(ckpt_dir, out_dir, ep, params, history, optimizer,
+                 scheduler, lr_schedule, png_skipped):
+    """The files of epoch `ep`: model_<ep>.pt every 10th epoch below 100
+    and every 100th, `latest` with the optimizer state, `best` when the
+    valid loss is the lowest yet (small datasets overfit over long
+    budgets, so rollout and planning prefer it when present),
+    train_state.json, the loss files and loss.png (skipped, once said,
+    without matplotlib). Returns whether loss.png is skipped."""
+    if (ep < 100 and ep % 10 == 0) or ep % 100 == 0:
+        save_checkpoint(ckpt_dir, f"model_{ep}", params)
+    save_checkpoint(ckpt_dir, "latest", params, optimizer, scheduler,
+                    lr_schedule)
+    if history.get("valid") and history["valid"][-1] == min(
+            history["valid"]):
+        save_checkpoint(ckpt_dir, "best", params)
+    with open(os.path.join(out_dir, "train_state.json"), "w") as f:
+        json.dump({"epoch": ep}, f)
+    np.savetxt(os.path.join(out_dir, "loss_train.txt"), history["train"])
+    if history.get("valid"):
+        np.savetxt(os.path.join(out_dir, "loss_valid.txt"), history["valid"])
+    if not png_skipped:
+        try:
+            plot_loss_curves(history["train"], history.get("valid"),
+                             os.path.join(out_dir, "loss.png"))
+        except ImportError:
+            print("matplotlib is not installed: loss.png skipped",
+                  flush=True)
+            return True
+    return png_skipped
+
+
 def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
           steps_per_call=8, resume=False, wall_budget_s=None, device=None):
     """Train the config's dynamics model on `device` (CUDA unless given);
@@ -299,22 +385,34 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
     resume=True restarts from the `latest` checkpoint (+ optimizer state +
     the epoch counter in train_state.json) when present. wall_budget_s:
     stop cleanly (checkpoint and history intact) once the next epoch would
-    exceed this wall-clock budget. `mesh` must be None: the port has no
-    device mesh yet."""
-    if mesh is not None:
-        raise ValueError("the port trains on one device; mesh must be None")
+    exceed this wall-clock budget.
+    mesh: a 1-D ('data',) mesh from parallel.mesh.make_mesh, over which
+    the batch is split (see the module docstring); None takes make_mesh()
+    when a process group of more than one process is initialised, as
+    JAX's `mesh or make_mesh()` takes every device, and one device
+    otherwise. Every rank calls train() alike; each returns the same
+    params and history."""
     device = resolve_device(device)
+    if mesh is None and world_size() > 1:
+        mesh = make_mesh(device=device)
+    if mesh is not None:
+        check_data_mesh(mesh)
+    lead = mesh is None or mesh.get_rank() == 0
+    say = print if lead else _quiet
     full_f32_matmul()
     dataset_config = config["dataset_config"]
     train_config = config["train_config"]
     out_dir = os.path.join(train_config["out_dir"], dataset_config["data_name"])
     ckpt_dir = os.path.join(out_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     datasets = {p: DynDataset(dataset_config, config["material_config"], p)
                 for p in train_config.get("phases", ["train", "valid"])}
 
     model, _ = init_model(config, datasets["train"], device=device)
+    if mesh is not None:
+        model.load_state_dict(replicate(model.state_dict(), mesh))
     slotted = model.cfg.aggregation in _SLOTTED
     preps = {p: make_prepare_fn(d, slotted=slotted)
              for p, d in datasets.items()}
@@ -329,10 +427,13 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
     optimizer, scheduler = make_optimizer(model.parameters(), lr, lr_schedule,
                                           n_epochs * it_train)
     n_future = int(dataset_config["n_future"])
-    train_step, eval_step = make_train_step(model, n_future, optimizer,
-                                            scheduler)
-
     b = batch_size or int(train_config["batch_size"])
+    # the batch splits over the mesh when its size divides it; otherwise
+    # every rank takes the whole batch and nothing is averaged
+    split = mesh if mesh is not None and local_rows(b, mesh) else None
+    train_step, eval_step = make_train_step(model, n_future, optimizer,
+                                            scheduler, split)
+
     seed = int(train_config.get("random_seed", 42))
     rng = np.random.RandomState(seed)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -345,7 +446,7 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
         if common is not None:
             chunks = {p: make_train_chunk(model, n_future, optimizer,
                                           datasets[p], common, pairs[p],
-                                          generator, scheduler)
+                                          generator, scheduler, split)
                       for p in datasets}
 
     history = {"train": [], "valid": []}
@@ -363,7 +464,9 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
             fp = os.path.join(out_dir, f"loss_{phase}.txt")
             if os.path.exists(fp):
                 history[phase] = list(np.atleast_1d(np.loadtxt(fp)))[:epoch0]
-        print(f"resumed from epoch {epoch0}", flush=True)
+        if mesh is not None:
+            model.load_state_dict(replicate(model.state_dict(), mesh))
+        say(f"resumed from epoch {epoch0}", flush=True)
 
     log_interval = int(train_config.get("log_interval", 50))
     png_skipped = False
@@ -372,9 +475,12 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
     for epoch in range(epoch0, n_epochs):
         if wall_budget_s is not None and epoch_times:
             spent = time.time() - t_start
-            if spent + max(epoch_times) > wall_budget_s:
-                print(f"wall budget {wall_budget_s:.0f}s: stopping before "
-                      f"epoch {epoch} ({spent:.0f}s spent)", flush=True)
+            stop = spent + max(epoch_times) > wall_budget_s
+            if mesh is not None:  # rank 0's clock decides for every rank
+                stop = replicate([stop], mesh)[0]
+            if stop:
+                say(f"wall budget {wall_budget_s:.0f}s: stopping before "
+                    f"epoch {epoch} ({spent:.0f}s spent)", flush=True)
                 break
         t0 = time.time()
         for phase in datasets:
@@ -389,58 +495,41 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
                 # whole number of chunks, announced once
                 n_eff = -(-n_iters // k) * k
                 if n_eff != n_iters and epoch == epoch0:
-                    print(f"note: {phase} iters/epoch rounded {n_iters} -> "
-                          f"{n_eff} (chunk size {k})", flush=True)
+                    say(f"note: {phase} iters/epoch rounded {n_iters} -> "
+                        f"{n_eff} (chunk size {k})", flush=True)
                 for c0 in range(0, n_iters, k):
                     idxs = rng.randint(0, len(d), size=(k, b)).astype(np.int32)
                     run = train_chunk if phase == "train" else eval_chunk
                     losses.extend(run(idxs).tolist())
                     if phase == "train" and (c0 // k) % max(
                             1, log_interval // k) == 0:
-                        print(f"epoch {epoch} iter {c0} loss {losses[-1]:.6f}",
-                              flush=True)
+                        say(f"epoch {epoch} iter {c0} loss {losses[-1]:.6f}",
+                            flush=True)
             else:
                 for it in range(n_iters):
                     idxs = rng.randint(0, len(d), size=b)
                     raw = {k_: torch.from_numpy(v).to(device)
                            for k_, v in d.raw_batch(idxs).items()}
-                    g = preps[phase](raw, draw_prepare(generator, raw, d))
+                    draws = draw_prepare(generator, raw, d)
+                    g = preps[phase](*split_batch(raw, draws, split))
                     step = train_step if phase == "train" else eval_step
                     losses.append(float(step(g)))
                     if phase == "train" and it % log_interval == 0:
-                        print(f"epoch {epoch} iter {it} loss {losses[-1]:.6f}",
-                              flush=True)
+                        say(f"epoch {epoch} iter {it} loss {losses[-1]:.6f}",
+                            flush=True)
             history[phase].append(float(np.mean(losses)))
-            print(f"epoch {epoch} {phase} loss {history[phase][-1]:.6f}",
-                  flush=True)
+            say(f"epoch {epoch} {phase} loss {history[phase][-1]:.6f}",
+                flush=True)
 
         ep = epoch + 1
-        params = model.state_dict()
-        if (ep < 100 and ep % 10 == 0) or ep % 100 == 0:
-            save_checkpoint(ckpt_dir, f"model_{ep}", params)
-        save_checkpoint(ckpt_dir, "latest", params, optimizer, scheduler,
-                        lr_schedule)
-        # best-valid checkpoint: small datasets overfit over long budgets,
-        # so rollout and planning prefer 'best' when present
-        if history.get("valid") and history["valid"][-1] == min(
-                history["valid"]):
-            save_checkpoint(ckpt_dir, "best", params)
-        with open(meta_p, "w") as f:
-            json.dump({"epoch": ep}, f)
-        np.savetxt(os.path.join(out_dir, "loss_train.txt"), history["train"])
-        if history.get("valid"):
-            np.savetxt(os.path.join(out_dir, "loss_valid.txt"),
-                       history["valid"])
-        if not png_skipped:
-            try:
-                plot_loss_curves(history["train"], history.get("valid"),
-                                 os.path.join(out_dir, "loss.png"))
-            except ImportError:
-                print("matplotlib is not installed: loss.png skipped",
-                      flush=True)
-                png_skipped = True
+        if lead:
+            png_skipped = _write_epoch(
+                ckpt_dir, out_dir, ep, model.state_dict(), history,
+                optimizer, scheduler, lr_schedule, png_skipped)
         epoch_times.append(time.time() - t0)
-        print(f"epoch {epoch} time {epoch_times[-1]:.1f}s", flush=True)
+        say(f"epoch {epoch} time {epoch_times[-1]:.1f}s", flush=True)
+    if mesh is not None:  # no rank reads rank 0's files before they exist
+        dist.barrier(group=mesh.get_group())
     return model.state_dict(), history
 
 
@@ -454,5 +543,6 @@ if __name__ == "__main__":
     ap.add_argument("--device", type=str, default=None,
                     help="cpu to train on the CPU (default: CUDA)")
     args = ap.parse_args()
+    init_from_env(args.device)
     train(load_config(args.config), epochs=args.epochs, iters=args.iters,
           batch_size=args.batch, resume=args.resume, device=args.device)

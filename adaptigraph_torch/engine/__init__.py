@@ -13,6 +13,7 @@ from adaptigraph_torch.engine.state import (
     make_params,
     scene_from_numpy,
 )
-from adaptigraph_torch.engine.cells import cell_list_neighbors
-from adaptigraph_torch.engine.neighbors import neighbor_list
+from adaptigraph_torch.engine.cells import cell_list_neighbors, morton_order
+from adaptigraph_torch.engine.neighbors import (neighbor_list,
+                                                neighbor_list_tiled)
 from adaptigraph_torch.engine.solver import xpbd_step, rollout_steps

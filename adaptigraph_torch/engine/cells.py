@@ -13,6 +13,9 @@ above 1,024 particles.
      stencil cells aliasing to one hash row visited once, a distance
      filter, and a top-k down to K.
 
+`morton_order` is the JAX module's host helper: a Z-order permutation of
+a point cloud, in numpy.
+
 Output as neighbors.neighbor_list: (idx (N, K) int32, valid (N, K) bool).
 The hash is computed in int64 and masked with table - 1: its low bits are
 those of the JAX version's wrapped int32 products, so both sides bin
@@ -130,3 +133,28 @@ def cell_bucket_overflow(pos, radius, active, bucket_size: int = 8,
     first = torch.searchsorted(h_sorted, h_sorted, side="left")
     rank = torch.arange(n, device=pos.device) - first
     return torch.sum((rank >= bucket_size) & (h_sorted < table))
+
+
+def morton_order(pos, cell: float = 0.05):
+    """The Morton (Z-order) permutation of a point cloud (N, 3), in numpy
+    on the host: each point's cell floor((p - min) / cell), 21 bits an
+    axis, interleaved x, y, z from the lowest bit, stably sorted. Scene
+    builders emit spatially coherent orders (chains, grids), which the
+    block-sparse sweep's tile culling relies on; this sorts an arbitrary
+    cloud so at build time. Returns the permutation's indices: remap
+    spring and cluster indices through it."""
+    p = np.asarray(pos)
+    q = np.floor((p - p.min(axis=0)) / cell).astype(np.uint64)
+    q = np.minimum(q, (1 << 21) - 1)
+
+    def spread(x):
+        x &= 0x1FFFFF
+        x = (x | (x << 32)) & 0x1F00000000FFFF
+        x = (x | (x << 16)) & 0x1F0000FF0000FF
+        x = (x | (x << 8)) & 0x100F00F00F00F00F
+        x = (x | (x << 4)) & 0x10C30C30C30C30C3
+        x = (x | (x << 2)) & 0x1249249249249249
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    return np.argsort(code, kind="stable")

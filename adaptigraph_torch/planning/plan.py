@@ -24,7 +24,14 @@ Divergences from the JAX package, by design:
   draws do not depend on where a resumed run started. `noise_hook`, a
   callable from the action index to a Planner `noise_fn`, replaces those
   draws (the parity tests replay JAX's through it).
-- No `mesh`: one device holds the population.
+- The mesh. As in JAX, the population is split over a 1-D data mesh
+  (`_planner_mesh`) when a process group of more than one process is
+  running and its size divides n_sample. One process a device here, so
+  whenever such a group runs, rank 0 alone drives the environment: it
+  perceives, pushes, writes the artefacts and refits the physics
+  estimate, and sends each observation and estimate to the other ranks,
+  which take part in the Planner's population only (two processes must
+  never push one robot). Every rank returns the same stats.
 - The planning overlay (rgb_vis_<i>.png, utils/visualize with cv2) never
   stops the loop, as in JAX, but the reason it could not be drawn (cv2
   absent, as on the card's machine) is printed once, not once an action.
@@ -57,10 +64,13 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adaptigraph_torch.dynamics.train import init_model
 from adaptigraph_torch.ops.losses import box_loss, chamfer
 from adaptigraph_torch.planning.actions import decode_action_single
+from adaptigraph_torch.parallel.mesh import (init_from_env, make_mesh,
+                                             replicate, world_size)
 from adaptigraph_torch.planning.costs import PENALTIES, chunked_cost
 from adaptigraph_torch.planning.forward_dynamics import make_batched_dynamics
 from adaptigraph_torch.planning.perception import (PerceptionModule,
@@ -72,6 +82,27 @@ from adaptigraph_torch.utils import load_config
 from adaptigraph_torch.utils.device import resolve_device
 
 FAR = (1e3, -1e2, 1e3)  # where get_obs moves the shapes it hides
+
+
+def _planner_mesh(n_sample, device=None):
+    """The 1-D data mesh over the running process group's world when it
+    holds more than one process and its size divides n_sample; None (one
+    device holds the population) otherwise. JAX's rule over the visible
+    devices (plan.py:45-54)."""
+    n = world_size()
+    if n > 1 and n_sample % n == 0:
+        return make_mesh(n, device=device)
+    return None
+
+
+def _share(obj):
+    """Rank 0's `obj` on every rank of the running process group (itself
+    without one)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def flex_to_plan(points):
@@ -213,46 +244,56 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
     state_dict of the task's dynamics model; the model, the population and
     the physics optimiser run on `device` (CUDA unless given).
     reward_mode: 'target' (the task's box or pcd) or 'change' (away from
-    the current state). Returns the stats rows."""
+    the current state). Returns the stats rows. Under a process group of
+    several processes every rank calls plan(); only rank 0's `env` is
+    used (the others may pass None)."""
     device = resolve_device(device)
-    os.makedirs(save_dir, exist_ok=True)
     tc = task_config
+    n_actions = n_actions or int(tc["n_actions"])
+    n_sample = n_sample or int(tc["n_sample"])
+    mesh = _planner_mesh(n_sample, device)
+    # rank 0 alone touches the environment and the files (every rank when
+    # no process group runs is rank 0)
+    lead = world_size() == 1 or dist.get_rank() == 0
     material = tc["material"]
     sim_real_ratio = float(tc["sim_real_ratio"])
     model = load_model(tc, params, device)
     params = dict(model.state_dict())
-
-    # env-native units: SimPlanEnv perceives in sim units, a real rig in
-    # table meters; real states scale by sim_real_ratio before planning,
-    # and the perception geometry switches to meters (workspace = bbox)
-    units = getattr(env, "units", "sim")
-    if units == "real":
-        bb = np.asarray(tc["bbox"], np.float32).reshape(2, 3)  # min, max rows
-        ws = np.stack([np.minimum(bb[0], bb[1]), np.maximum(bb[0], bb[1])],
-                      axis=1)
-        perception = PerceptionModule(
-            tc, table_height=float(tc.get("table_height", 0.0)),
-            voxel=0.002, workspace=ws)
-        state_scale = sim_real_ratio
-    else:
-        perception = PerceptionModule(tc)
-        state_scale = 1.0
-    ppm = PhysicsParamOnlineOptimizer(tc, model, params, material, save_dir,
-                                      device=device)
-    rollout = make_batched_dynamics(model, tc)
+    if mesh is not None:
+        params = replicate(params, mesh)
 
     def on(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     terms = make_reward(tc, reward_mode, device)
     tgt_type = tc.get("target_type")
-    n_actions = n_actions or int(tc["n_actions"])
-    n_sample = n_sample or int(tc["n_sample"])
     max_nobj = int(tc["max_nobj"])
+    rollout = make_batched_dynamics(model, tc)
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
+        # env-native units: SimPlanEnv perceives in sim units, a real rig
+        # in table meters; real states scale by sim_real_ratio before
+        # planning, and the perception geometry switches to meters
+        # (workspace = bbox)
+        units = getattr(env, "units", "sim")
+        if units == "real":
+            bb = np.asarray(tc["bbox"], np.float32).reshape(2, 3)
+            ws = np.stack([np.minimum(bb[0], bb[1]),
+                           np.maximum(bb[0], bb[1])], axis=1)
+            perception = PerceptionModule(
+                tc, table_height=float(tc.get("table_height", 0.0)),
+                voxel=0.002, workspace=ws)
+            state_scale = sim_real_ratio
+        else:
+            perception = PerceptionModule(tc)
+            state_scale = 1.0
+        ppm = PhysicsParamOnlineOptimizer(tc, model, params, material,
+                                          save_dir, device=device)
 
     start_i = 0
-    if resume:
+    if resume and lead:
         start_i = len(glob.glob(os.path.join(save_dir, "interaction_*.npz")))
+    start_i = _share(start_i)
 
     init_act = np.tile(np.array([[-1.0, 0.0, 0.0,
                                   float(tc["action_lower_lim"][3])]],
@@ -260,17 +301,21 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
     stats = []
     overlay_failed = False
     for i in range(start_i, n_actions):
-        colors, depths, intrs, extrs = _observe(env)
-        state_cur_raw, _ = perception.get_state_cur(colors, depths, intrs,
-                                                    extrs)
-        state_cur = flex_to_plan(state_cur_raw * state_scale)
+        seen = None
+        if lead:
+            colors, depths, intrs, extrs = _observe(env)
+            state_cur_raw, _ = perception.get_state_cur(colors, depths,
+                                                        intrs, extrs)
+            state_cur = flex_to_plan(state_cur_raw * state_scale)
+            seen = (state_cur, ppm.physics_param[material])
+        state_cur, phys_now = _share(seen)
         nobj = min(len(state_cur), max_nobj)
         state_pad = np.zeros((max_nobj, 3), np.float32)
         state_pad[:nobj] = state_cur[:nobj]
         obj_mask = np.zeros(max_nobj, bool)
         obj_mask[:nobj] = True
 
-        phys = on(ppm.physics_param[material])
+        phys = on(phys_now)
         state_pad_d = on(state_pad)
         obj_mask_d = on(obj_mask, torch.bool)
         if reward_mode == "change":
@@ -302,9 +347,12 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
             "push_length": float(tc["push_length"]),
             "device": device,
             "noise_fn": noise_hook(i) if noise_hook is not None else None,
+            "mesh": mesh,
         })
         res = planner.trajectory_optimization(state_pad_d, init_act,
                                               seed=action_seed(seed, i))
+        if not lead:
+            continue
         act = res["act_seq"][0].cpu().numpy()
         state_pred = (res["best_model_output"]["state_seqs"][0, -1]
                       .cpu().numpy())
@@ -348,8 +396,9 @@ def plan(task_config, env, save_dir, params, use_ppo=False, n_actions=None,
         if use_ppo:
             ppm.optimize(i, iterations=int(os.environ.get("PPO_ITERS", 50)))
 
-    np.savetxt(os.path.join(save_dir, "stats.txt"), np.asarray(stats))
-    return stats
+    if lead:
+        np.savetxt(os.path.join(save_dir, "stats.txt"), np.asarray(stats))
+    return _share(stats)
 
 
 def _write_overlay(path, tc, reward_mode, color, intr, extr, state_cur,
@@ -406,13 +455,19 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    init_from_env(args.device)
     tc = load_config(args.task_config)["task_config"]
-    env = make_env(tc, args.env, device=resolve_device(args.device))
-    if args.env == "real":
+    if world_size() > 1 and dist.get_rank() > 0:
+        env = None  # rank 0 alone drives the environment
+    else:
+        env = make_env(tc, args.env, device=resolve_device(args.device))
+    if args.env == "real" and env is not None:
         env.start()
     if args.capture_goal:
-        pts = capture_goal(env, PerceptionModule(tc), args.capture_goal)
-        print(f"captured goal pcd: {len(pts)} points -> {args.capture_goal}")
+        if env is not None:
+            pts = capture_goal(env, PerceptionModule(tc), args.capture_goal)
+            print(f"captured goal pcd: {len(pts)} points -> "
+                  f"{args.capture_goal}")
         return
     if args.params is None:
         ap.error("--params is needed to plan")

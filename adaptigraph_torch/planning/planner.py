@@ -7,8 +7,17 @@ tracked across iterations, optionally rolled out again alone) and 'GD'
 (Adam ascent on the mean reward, autograd through the batched rollout).
 `merge_res` is kept for callers that plan in chunks.
 
-Not ported: the JAX `mesh` option, which spreads the population over
-several devices; one H100 holds the population.
+With a `mesh` (parallel/mesh.py's 1-D data mesh, one process a device)
+the population is split as JAX's shard_batch splits it: every rank draws
+the whole population from the same noise, rolls out its own rows, and
+the rollouts' outputs are gathered in rank order, so every rank scores
+the whole population. The reward's weight 2 / max(error) spans the
+population (costs.assemble_reward), so the score needs every row; the
+rollout is where the time goes. Every rank then takes the same MPPI
+update and the same argmax. GD steps each rank's rows with its own Adam
+(Adam is elementwise) on the gradient of the whole population's mean
+reward. A population the mesh does not divide is rolled out whole on
+every rank, as JAX replicates it.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adaptigraph_torch.parallel.mesh import (check_data_mesh, gather,
+                                             gather_rows, local_rows)
 from adaptigraph_torch.planning.actions import (clip_actions,
                                                 draw_action_noise,
                                                 optimize_action_mppi,
@@ -27,7 +38,9 @@ class Planner:
     """config keys: action_dim, model_rollout_fn, evaluate_traj_fn,
     n_sample, n_look_ahead, n_update_iter, reward_weight, action_lower_lim,
     action_upper_lim, planner_type; optional noise_level, push_length,
-    rollout_best, lr, verbose, device (CUDA unless given) and noise_fn.
+    rollout_best, lr, verbose, device (CUDA unless given), noise_fn and
+    mesh (a 1-D ('data',) mesh from parallel.mesh.make_mesh; every rank
+    builds the same Planner and calls it alike).
 
     noise_fn(iter_index, n_sample, n_look, adim) returns the draws of
     `sample_action_seq` for that iteration (GD draws iteration 0's once).
@@ -35,10 +48,9 @@ class Planner:
     seeded with the `seed` given to trajectory_optimization."""
 
     def __init__(self, config):
-        if config.get("mesh") is not None:
-            raise NotImplementedError(
-                "the population's spread over several devices (mesh) is not "
-                "ported; one device holds the population")
+        self.mesh = config.get("mesh")
+        if self.mesh is not None:
+            check_data_mesh(self.mesh)
         self.cfg = config
         self.device = resolve_device(config.get("device"))
         self.model_rollout = config["model_rollout_fn"]
@@ -86,6 +98,37 @@ class Planner:
                                  noise_level=self.noise_level,
                                  push_length=self.push_length)
 
+    def _rows(self):
+        """This rank's rows of the population; None when it is whole."""
+        if self.mesh is None:
+            return None
+        return local_rows(self.n_sample, self.mesh)
+
+    def _score(self, state_cur, own, rows, acts=None):
+        """(model_out, eval_out) of the whole population: the rollout of
+        `own`, this rank's `rows` of it (the whole population when rows is
+        None), gathered from every rank in rank order with this rank's own
+        tensors (and any gradient they carry) in its place, then scored
+        with `acts`, the whole population (gathered from `own` when
+        None)."""
+        model_out = self.model_rollout(state_cur, own)
+        if rows is not None:
+            model_out = self._gathered(model_out, own.shape[0])
+            if acts is None:
+                acts = self._gathered({"a": own}, own.shape[0])["a"]
+        acts = own if acts is None else acts
+        return model_out, self.evaluate_traj(model_out["state_seqs"], acts,
+                                             state_cur=state_cur)
+
+    def _gathered(self, out, n):
+        whole = dict(out)
+        for k, v in out.items():
+            if torch.is_tensor(v) and v.ndim and v.shape[0] == n:
+                parts = gather(v.detach(), self.mesh)
+                parts[self.mesh.get_local_rank()] = v
+                whole[k] = torch.cat(parts)
+        return whole
+
     def _best(self, state_cur, act_seq):
         if not self.rollout_best:
             return None, None
@@ -98,11 +141,11 @@ class Planner:
     def _mppi(self, state_cur, act_seq, noise):
         best_act, best_reward = None, -float("inf")
         model_outputs, eval_outputs = [], []
+        rows = self._rows()
         for i in range(self.n_update_iter):
             act_seqs = self._sample(act_seq, noise, i)
-            model_out = self.model_rollout(state_cur, act_seqs)
-            eval_out = self.evaluate_traj(model_out["state_seqs"], act_seqs,
-                                          state_cur=state_cur)
+            own = act_seqs if rows is None else act_seqs[rows]
+            model_out, eval_out = self._score(state_cur, own, rows, act_seqs)
             rewards = eval_out["reward_seqs"]
             act_seq = optimize_action_mppi(act_seqs, rewards,
                                            self.reward_weight, self.lower,
@@ -122,24 +165,25 @@ class Planner:
                 "best_eval_output": best_eval_out}
 
     def _gd(self, state_cur, act_seq, noise):
-        act_seqs = self._sample(act_seq, noise, 0).clone().requires_grad_(True)
+        rows = self._rows()
+        act_seqs = self._sample(act_seq, noise, 0)
+        if rows is not None:
+            act_seqs = act_seqs[rows]
+        act_seqs = act_seqs.clone().requires_grad_(True)
         # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8, bias-corrected
         opt = torch.optim.Adam([act_seqs], lr=self.lr, betas=(0.9, 0.999),
                                eps=1e-8)
         for _ in range(self.n_update_iter):
             opt.zero_grad()
-            out = self.model_rollout(state_cur, act_seqs)
-            ev = self.evaluate_traj(out["state_seqs"], act_seqs,
-                                    state_cur=state_cur)
+            _, ev = self._score(state_cur, act_seqs, rows)
             (-ev["reward_seqs"].mean()).backward()
             opt.step()
             with torch.no_grad():
                 act_seqs.copy_(clip_actions(act_seqs, self.lower, self.upper))
         with torch.no_grad():
-            act_seqs = act_seqs.detach()
-            out = self.model_rollout(state_cur, act_seqs)
-            ev = self.evaluate_traj(out["state_seqs"], act_seqs,
-                                    state_cur=state_cur)
+            own = act_seqs.detach()
+            act_seqs = own if rows is None else gather_rows(own, self.mesh)
+            _, ev = self._score(state_cur, own, rows, act_seqs)
             act_seq = act_seqs[int(torch.argmax(ev["reward_seqs"]))]
             best_model_out, best_eval_out = self._best(state_cur, act_seq)
         return {"act_seq": act_seq, "model_outputs": None,

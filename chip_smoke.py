@@ -53,7 +53,14 @@ batch against the CPU's, train() through two K-step chunks on the
 device-resident episode and a resume, and through its host loop (equal
 bit for bit), the loss falling; train steps/s, the step's split
 (prepare, forward + backward, Adam), launches, idle share and peak
-memory; no contact kernel. Then the closed planning loop (loop_path):
+memory; no contact kernel. Then the 1-D data mesh (mesh_path): an NCCL
+process group of one process through a FileStore, parallel.make_mesh()
+over it, train() through one chunk with the mesh and without (params and
+losses equal bit for bit), a train chunk with and without the mesh timed
+in turns, plan_path's Planner again with the mesh (its act_seq equal bit
+for bit to plan_path's), the tiled neighbor list against the dense one at
+the rope's 5,120 particles (equal), no contact kernel, the group
+destroyed. Then the closed planning loop (loop_path):
 planning.plan.plan() on SimPlanEnv, the sim path's scene, at the rope
 task's full width (200 objects, the pcd target built from the card's own
 first observation, the action box recentred on the rope; 2,500 sampled
@@ -83,6 +90,8 @@ only.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -102,7 +111,10 @@ os.environ.setdefault("TEARDOWN_CUPTI", "1")
 import torch  # noqa: E402
 
 DEVICE = "cuda:0"
-DEADLINE_S = 300.0  # build plus every phase
+# the watchdog, over the build and every phase: the smoke's phases are
+# host-bound and ran up to ~30% slower on one H100 machine than on another
+# (the whole took 247-322 s; PERF.md section 5)
+DEADLINE_S = 450.0
 T_MAIN = 80  # frames of the rope main-path rollout (the pusher's sweep)
 T_PUSH = 30  # frames searched for the kernel checks' frame (rope meets floor)
 T_BENCH = 20  # frames of bench.py's pinned rope (timed only; 80 before the
@@ -253,6 +265,19 @@ LOOP_PERCEIVE_DIST, LOOP_MOVED, LOOP_PUSHED = 0.5, 1e-3, 0.05
 # one step under torch.profiler.
 TRAIN_K, TRAIN_GRAD_B, TRAIN_GRAD_RTOL = 8, 8, 1e-5
 TRAIN_TIME_CHUNKS, TRAIN_SPLIT_STEPS = 3, 3
+# the 1-D data mesh (mesh_path, after train_path): a process group of one
+# rank on MESH_BACKEND through a FileStore in a temporary directory (no
+# TCP port), parallel.make_mesh() over it; train() through one epoch of
+# one TRAIN_K-step train chunk and one valid chunk at train_path's config
+# and batch, with the mesh and without, params and losses equal bit for
+# bit; a train chunk of MESH_TIME_STEPS steps with the mesh and without
+# timed in turns (without, with, with, without) for train steps/s; plan_path's Planner again with
+# the mesh, its act_seq equal bit for bit to plan_path's; the tiled
+# neighbor list (tile MESH_TILE) against the dense one on the rope's
+# 5,120 built positions at the sparse path's radius (1.5 particle radii),
+# equal; no contact kernel. The group is destroyed before the next phase
+MESH_BACKEND, MESH_TILE, MESH_NEIGHBOR_K = "nccl", 1024, 32
+MESH_TIME_STEPS = 4
 # batched episodes (batch_path): sim.batch_env.generate_batch over
 # BATCH_SEEDS, one push each (n_timestep 1), at the sim path's scene
 # (configs/data_gen/rope.yaml at SIM_CUTS: the rope at its 3,072 cap, 11
@@ -2278,6 +2303,155 @@ def train_phases(dev, dyn, root, batch=None):
         "train_loss_by_epoch": train_losses, "seconds": r["seconds"]}
 
 
+def mesh_phases(dev, dyn, root, replan, rope, batch=None):
+    """The 1-D data mesh on the card (mesh_path), at world size 1 over
+    MESH_BACKEND: `dyn` and `root` as train_phases takes them (train_path's
+    config and episode), `replan(mesh)` plan_path's Planner run again
+    with `mesh`, returning (act_seq, plan_path's act_seq), `rope` the rope
+    design point's built particles (pos, active, radius). Returns the
+    numbers printed before the last line and the path's launch counts."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from adaptigraph_torch.dynamics import train as tt
+    from adaptigraph_torch.dynamics.dataset import DynDataset
+    from adaptigraph_torch.engine.neighbors import (neighbor_list,
+                                                    neighbor_list_tiled)
+    from adaptigraph_torch.parallel import make_mesh
+
+    _phase[0] = "mesh_init"
+    t_start = time.perf_counter()
+    reset_counts()
+    store = os.path.join(tempfile.mkdtemp(prefix="mesh_", dir=root), "store")
+    (_, init_s) = sync_time(lambda: dist.init_process_group(
+        MESH_BACKEND, store=dist.FileStore(store, 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60)))
+    try:
+        mesh = make_mesh(device=dev)
+        probe = torch.ones(1, device=dev)
+        # the first collective makes the communicator
+        (_, first_s) = sync_time(lambda: dist.all_gather(
+            [torch.empty_like(probe)], probe, group=mesh.get_group()))
+        r = {"phase": "mesh_init", "backend": str(dist.get_backend()),
+             "world_size": dist.get_world_size(),
+             "mesh_device_type": mesh.device_type, "mesh_size": mesh.size(),
+             "mesh_dim_names": list(mesh.mesh_dim_names),
+             "init_process_group_s": init_s, "first_collective_s": first_s}
+        r["ok"] = (r["backend"] == MESH_BACKEND and r["world_size"] == 1
+                   and r["mesh_device_type"] == torch.device(dev).type
+                   and r["mesh_size"] == 1
+                   and r["mesh_dim_names"] == ["data"])
+        emit(r)
+        if not r["ok"]:
+            raise RuntimeError("the mesh is not a 1-D mesh of the card over "
+                               f"{MESH_BACKEND}")
+        init = r
+
+        # train() through one epoch of one chunk with the mesh and without
+        _phase[0] = "mesh_train"
+        cfg = dyn.override({
+            "dataset_config": {"ratio": {"train": [0, 1],
+                                         "valid": [0, 1]}}})
+        tcfg = cfg["train_config"]
+        b, k = batch or int(tcfg["batch_size"]), TRAIN_K
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            c = cfg.override({"train_config": {
+                "out_dir": os.path.join(root, f"mesh_{name}")}})
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[name] = sync_time(lambda: tt.train(
+                    c, epochs=1, iters=k, batch_size=b, device=dev,
+                    steps_per_call=k, mesh=m))
+        (pp, ph), plain_s = runs["plain"]
+        (mp, mh), mesh_s = runs["mesh"]
+        r = {"phase": "mesh_train", "batch": b, "steps_per_chunk": k,
+             "epochs": 1, "history_plain": ph, "history_mesh": mh,
+             "params_equal": all(torch.equal(pp[n], mp[n]) for n in pp),
+             "params_max_abs_diff": max(float((pp[n] - mp[n]).abs().max())
+                                        for n in pp),
+             "train_seconds_plain": plain_s, "train_seconds_mesh": mesh_s}
+        r["ok"] = r["params_equal"] and ph == mh
+        emit(r)
+        if not r["ok"]:
+            raise RuntimeError("train() with the mesh differs from train() "
+                               "without it")
+
+        # a train chunk with the mesh and without, in turns
+        _phase[0] = "mesh_train_times"
+        d = DynDataset(cfg["dataset_config"], cfg["material_config"],
+                       "train")
+        common, pairs = tt.device_dataset({"train": d}, device=dev)
+        seed = int(tcfg.get("random_seed", 42))
+        chunks = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            model = tt.init_model(cfg, d, device=dev)[0]
+            opt, _ = tt.make_optimizer(model.parameters(),
+                                       float(tcfg.get("lr", 1e-3)))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            chunks[name] = tt.make_train_chunk(
+                model, d.n_future, opt, d, common, pairs["train"], gen,
+                mesh=m)[0]
+        n = MESH_TIME_STEPS
+        table = np.random.RandomState(seed + 5).randint(0, len(d), (n, b))
+        secs = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            secs[name].append(sync_time(lambda: chunks[name](table))[1])
+        r = {"phase": "mesh_train_times", "batch": b, "steps_per_chunk": n,
+             "order": "plain, mesh, mesh, plain", "chunk_seconds": secs,
+             "train_steps_per_s_plain": n / float(np.mean(secs["plain"])),
+             "train_steps_per_s_mesh": n / float(np.mean(secs["mesh"])),
+             "ok": True}
+        emit(r)
+        times = r
+
+        # plan_path's Planner with the mesh
+        _phase[0] = "mesh_plan"
+        (got, want), plan_s = sync_time(lambda: replan(mesh))
+        r = {"phase": "mesh_plan", "seconds": plan_s,
+             "act_seq_mesh": got.cpu().tolist(),
+             "act_seq_plain": want.cpu().tolist(),
+             "act_seq_equal": bool(torch.equal(got, want))}
+        r["ok"] = r["act_seq_equal"]
+        emit(r)
+        if not r["ok"]:
+            raise RuntimeError("the Planner with the mesh chose another "
+                               "act_seq than plan_path's")
+    finally:
+        dist.destroy_process_group()
+
+    # the tiled neighbor list against the dense one at the rope's size
+    _phase[0] = "mesh_neighbors"
+    pos, active, radius = rope
+    (dense, tiled), nb_s = sync_time(lambda: (
+        neighbor_list(pos, radius, active, k=MESH_NEIGHBOR_K),
+        neighbor_list_tiled(pos, radius, active, k=MESH_NEIGHBOR_K,
+                            tile=MESH_TILE)))
+    counts = read_counts()
+    r = {"phase": "mesh_neighbors", "n": int(pos.shape[0]),
+         "tile": MESH_TILE, "k": MESH_NEIGHBOR_K, "radius": float(radius),
+         "idx_equal": bool(torch.equal(dense[0], tiled[0])),
+         "valid_equal": bool(torch.equal(dense[1], tiled[1])),
+         "neighbors": int(dense[1].sum()), "seconds": nb_s,
+         "contact_launches": counts,
+         "seconds_path": time.perf_counter() - t_start}
+    r["ok"] = (r["idx_equal"] and r["valid_equal"] and r["neighbors"] > 0
+               and not any(counts.values()))
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the tiled neighbor list differs from the dense "
+                           "one, or a contact kernel launched in the mesh "
+                           "path")
+    return {"counts": counts, "seconds": r["seconds_path"],
+            "init_process_group_s": init["init_process_group_s"],
+            "first_collective_s": init["first_collective_s"],
+            "train_seconds_plain": plain_s, "train_seconds_mesh": mesh_s,
+            "train_steps_per_s_plain": times["train_steps_per_s_plain"],
+            "train_steps_per_s_mesh": times["train_steps_per_s_mesh"],
+            "plan_seconds_mesh": plan_s}
+
+
 def toy_graph_batch(dev, b=8, n_obj=100, n_eef=1, n_his=4, max_nr=1000,
                     seed=0):
     """The port's counterpart of __graft_entry__._toy_graph_batch: b
@@ -2795,7 +2969,18 @@ def plan_phases(dev, frame, target_frame, n_sample=PLAN_SAMPLES,
          "top_kernels": prof["top_kernels"][:6], "ok": True,
          "seconds": time.perf_counter() - t0}
     emit(r)
-    return {"mppi_samples_per_s": n_sample * PLAN_ITERS / secs,
+
+    def replan(mesh):
+        """This path's Planner again, with `mesh`: (its act_seq, this
+        run's act_seq)."""
+        again = Planner(dict(planner_config(
+            tc, n_sample, lambda sc, a: rollout(params, st, mk, a, phys),
+            evaluate, dev, PLAN_ITERS), mesh=mesh))
+        return again.trajectory_optimization(st, init_act,
+                                             seed=PLAN_SEED)["act_seq"], best
+
+    return {"replan": replan,
+            "mppi_samples_per_s": n_sample * PLAN_ITERS / secs,
             "seconds_mppi": secs, "samples": n_sample, "chunk": chunk,
             "peak_memory_bytes": int(peak),
             "forward_chunk_ms_by_mode": times,
@@ -3506,10 +3691,14 @@ def main():
     gt = gran["times"]
     cloth = cloth_phases(dev, lib)
     ct = cloth["times"]
-    sim = sim_phases(dev, lib, after_episode=lambda dyn, root: train_phases(
-        dev, dyn, root))
+    replan = plan.pop("replan")
+    rope = (b.state.particles.pos, b.state.particles.active,
+            1.5 * float(spec.params.radius))
+    sim = sim_phases(dev, lib, after_episode=lambda dyn, root: (
+        train_phases(dev, dyn, root),
+        mesh_phases(dev, dyn, root, replan, rope)))
     simt = sim["times"]
-    train = sim["after_episode"]
+    train, mesh = sim["after_episode"]
     loop = loop_phases(dev)
     batch = batch_phases(dev, lone=sim["lone"])
     native_phases(sim["frames"], sim["lone"]["settled"][:sim["n_active"]])
@@ -3558,6 +3747,7 @@ def main():
                "plan_path": plan["contact_launches"],
                "loop_path": loop["counts"],
                "train_path": train["counts"],
+               "mesh_path": mesh["counts"],
                "batch_path": batch["counts"]}
 
     def total(key):
@@ -3608,6 +3798,7 @@ def main():
     emit({"phase": "plan_numbers", "plan_path": plan, "card": smi})
     emit({"phase": "loop_numbers", "loop_path": loop, "card": smi})
     emit({"phase": "train_numbers", "train_path": train, "card": smi})
+    emit({"phase": "mesh_numbers", "mesh_path": mesh, "card": smi})
     emit({"phase": "batch_numbers", "batch_path": batch, "card": smi})
     emit({"kernels": [
         {"name": "block_sparse_contact", "route": "cuda", "source": src,

@@ -789,8 +789,17 @@ def test_planning_entry_points_raise_without_a_device(small, monkeypatch,
         run_demo(_task(), str(tmp_path), params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tc.make_error_fn({"target_type": "box", "target": [0, 1, 0, 1]})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TPlanner(dict(cfg, device="cpu", mesh=object()))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tests.test_torch_parallel import one_rank_group
+
+    with one_rank_group(tmp_path / "store"):
+        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                              "model"))
+        with pytest.raises(NotImplementedError, match="next slice"):
+            TPlanner(dict(cfg, device="cpu", mesh=m2))
 
 
 def test_smoke_plan_path_runs_on_the_cpu(monkeypatch):

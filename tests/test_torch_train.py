@@ -485,9 +485,22 @@ def test_train_wall_budget_and_missing_matplotlib(world, tmp_path,
 
 def test_train_refuses_a_mesh_and_needs_a_device(world, tmp_path,
                                                  monkeypatch):
+    """train() takes a 1-D ('data',) DeviceMesh only: anything else than
+    a DeviceMesh raises TypeError, a 2-D mesh NotImplementedError (the
+    next slice of the port); without a device and without CUDA it
+    raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tests.test_torch_parallel import one_rank_group
+
     _, tcfg, _ = world
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tt.train(_tiny(tcfg, tmp_path), mesh=object(), device="cpu")
+    with one_rank_group(tmp_path / "store"):
+        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                              "model"))
+        with pytest.raises(NotImplementedError, match="next slice"):
+            tt.train(_tiny(tcfg, tmp_path), mesh=m2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tt.train(_tiny(tcfg, tmp_path))
