@@ -18,12 +18,16 @@ Structure on the device:
     otherwise `train` runs the per-step host loop over
     DynDataset.raw_batch.
 
-On a mesh (parallel/mesh.py's 1-D data mesh, one process a device) each
-rank draws the whole batch's indices and graph draws, keeps its own rows
-(shard_batch's rule: a batch the mesh does not divide stays whole on
-every rank) and averages the gradient and the loss over the ranks,
-summed in rank order, before Adam, which then steps alike on every rank.
-Rank 0 alone writes the checkpoints and the loss files, and prints.
+On a mesh (parallel/mesh.py's 1-D data mesh or 2-D data x model mesh,
+one process a device) each rank draws the whole batch's indices and
+graph draws, keeps its data row's rows (shard_batch's rule: a batch the
+whole mesh does not divide stays whole on every rank) and averages the
+gradient and the loss over the data ranks, summed in rank order, before
+Adam, which then steps alike on every rank of a model column. Rank 0
+alone writes the checkpoints and the loss files, and prints. train()
+replicates the params over the mesh, as JAX's does; the column-parallel
+layout is make_train_step on a model that parallel.shard_params_model
+has laid out.
 
 Batch indices come from np.random.RandomState(random_seed) in the JAX
 package's order, so both packages train on the same pairs; the graph
@@ -51,17 +55,16 @@ from functools import partial
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.func import functional_call
 
 from adaptigraph_torch.dynamics.dataset import (DynDataset, draw_prepare,
                                                 make_prepare_fn)
 from adaptigraph_torch.dynamics.model import (DynamicsPredictor,
                                               model_config_from_yaml)
-from adaptigraph_torch.parallel.mesh import (check_data_mesh, init_from_env,
-                                             local_rows, make_mesh, mean_over,
-                                             replicate, shard_batch,
-                                             world_size)
+from adaptigraph_torch.parallel.mesh import (barrier, check_data_mesh,
+                                             init_from_env, local_rows,
+                                             make_mesh, mean_over, replicate,
+                                             shard_batch, world_size)
 from adaptigraph_torch.utils import load_config
 from adaptigraph_torch.utils.device import full_f32_matmul, resolve_device
 from adaptigraph_torch.utils.profiling import plot_loss_curves
@@ -149,10 +152,11 @@ def make_optimizer(params, lr: float, lr_schedule=None, decay_steps: int = 1):
 
 def mean_grads_and_loss(params, loss, mesh):
     """Average the gradients of `params` (a dict of tensors after
-    backward) and `loss` over the mesh's ranks in one gather: each rank's
-    gradients flattened into one vector with its loss, summed in rank
-    order. Writes the means into the .grad tensors; returns the mean
-    loss."""
+    backward) and `loss` over the mesh's data ranks in one gather: each
+    rank's gradients flattened into one vector with its loss, summed in
+    rank order. On a 2-D mesh a column-parallel weight's rows differ by
+    model rank and are not mixed across it. Writes the means into the
+    .grad tensors; returns the mean loss."""
     grads = [p.grad for p in params.values() if p.grad is not None]
     flat = mean_over(torch.cat([g.reshape(-1) for g in grads]
                                + [loss.detach().reshape(1)]), mesh)
@@ -170,9 +174,11 @@ def make_train_step(model, n_future: int, optimizer, scheduler=None,
     returns the loss before it; eval_step(batch) the loss, no gradient.
     Both return a 0-dim tensor on the device (no host sync). With a
     `mesh`, the batch is this rank's rows of the global batch: the
-    gradients and the loss are averaged over the ranks
+    gradients and the loss are averaged over the data ranks
     (mean_grads_and_loss) before Adam, and both steps return the global
-    loss."""
+    loss. The parameters are read from `model` when this is called: on a
+    2-D mesh, lay the model out (parallel.shard_params_model) and build
+    the optimizer first."""
     unrolled_loss = make_unrolled_loss(model, n_future)
     params = dict(model.named_parameters())
 
@@ -386,12 +392,13 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
     the epoch counter in train_state.json) when present. wall_budget_s:
     stop cleanly (checkpoint and history intact) once the next epoch would
     exceed this wall-clock budget.
-    mesh: a 1-D ('data',) mesh from parallel.mesh.make_mesh, over which
-    the batch is split (see the module docstring); None takes make_mesh()
-    when a process group of more than one process is initialised, as
-    JAX's `mesh or make_mesh()` takes every device, and one device
-    otherwise. Every rank calls train() alike; each returns the same
-    params and history."""
+    mesh: a 1-D ('data',) mesh from parallel.mesh.make_mesh or a 2-D
+    ('data', 'model') mesh from make_mesh_2d, the batch split over its
+    data axis and the params replicated (see the module docstring); None
+    takes make_mesh() when a process group of more than one process is
+    initialised, as JAX's `mesh or make_mesh()` takes every device, and
+    one device otherwise. Every rank calls train() alike; each returns
+    the same params and history."""
     device = resolve_device(device)
     if mesh is None and world_size() > 1:
         mesh = make_mesh(device=device)
@@ -529,7 +536,7 @@ def train(config, epochs=None, iters=None, batch_size=None, mesh=None,
         epoch_times.append(time.time() - t0)
         say(f"epoch {epoch} time {epoch_times[-1]:.1f}s", flush=True)
     if mesh is not None:  # no rank reads rank 0's files before they exist
-        dist.barrier(group=mesh.get_group())
+        barrier(mesh)
     return model.state_dict(), history
 
 

@@ -1,4 +1,6 @@
-from adaptigraph_torch.parallel.mesh import (make_mesh, replicate,
-                                             shard_batch)
+from adaptigraph_torch.parallel.mesh import (gather_params_model, make_mesh,
+                                             make_mesh_2d, replicate,
+                                             shard_batch, shard_params_model)
 
-__all__ = ["make_mesh", "replicate", "shard_batch"]
+__all__ = ["gather_params_model", "make_mesh", "make_mesh_2d", "replicate",
+           "shard_batch", "shard_params_model"]

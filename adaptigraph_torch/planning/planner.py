@@ -7,17 +7,18 @@ tracked across iterations, optionally rolled out again alone) and 'GD'
 (Adam ascent on the mean reward, autograd through the batched rollout).
 `merge_res` is kept for callers that plan in chunks.
 
-With a `mesh` (parallel/mesh.py's 1-D data mesh, one process a device)
-the population is split as JAX's shard_batch splits it: every rank draws
-the whole population from the same noise, rolls out its own rows, and
-the rollouts' outputs are gathered in rank order, so every rank scores
-the whole population. The reward's weight 2 / max(error) spans the
-population (costs.assemble_reward), so the score needs every row; the
-rollout is where the time goes. Every rank then takes the same MPPI
-update and the same argmax. GD steps each rank's rows with its own Adam
-(Adam is elementwise) on the gradient of the whole population's mean
-reward. A population the mesh does not divide is rolled out whole on
-every rank, as JAX replicates it.
+With a `mesh` (parallel/mesh.py's 1-D data mesh or 2-D data x model
+mesh, one process a device) the population is split as JAX's shard_batch
+splits it: every rank draws the whole population from the same noise,
+rolls out its data row's rows, and the rollouts' outputs are gathered
+over the data ranks in rank order, so every rank scores the whole
+population. The reward's weight 2 / max(error) spans the population
+(costs.assemble_reward), so the score needs every row; the rollout is
+where the time goes. Every rank then takes the same MPPI update and the
+same argmax. GD steps each rank's rows with its own Adam (Adam is
+elementwise) on the gradient of the whole population's mean reward. A
+population the whole mesh does not divide is rolled out whole on every
+rank, as JAX replicates it.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from adaptigraph_torch.parallel.mesh import (check_data_mesh, gather,
-                                             gather_rows, local_rows)
+from adaptigraph_torch.parallel.mesh import (check_data_mesh, data_rank,
+                                             gather, gather_rows, local_rows)
 from adaptigraph_torch.planning.actions import (clip_actions,
                                                 draw_action_noise,
                                                 optimize_action_mppi,
@@ -39,8 +40,9 @@ class Planner:
     n_sample, n_look_ahead, n_update_iter, reward_weight, action_lower_lim,
     action_upper_lim, planner_type; optional noise_level, push_length,
     rollout_best, lr, verbose, device (CUDA unless given), noise_fn and
-    mesh (a 1-D ('data',) mesh from parallel.mesh.make_mesh; every rank
-    builds the same Planner and calls it alike).
+    mesh (a 1-D ('data',) mesh from parallel.mesh.make_mesh or a 2-D
+    ('data', 'model') mesh from make_mesh_2d; every rank builds the same
+    Planner and calls it alike).
 
     noise_fn(iter_index, n_sample, n_look, adim) returns the draws of
     `sample_action_seq` for that iteration (GD draws iteration 0's once).
@@ -125,7 +127,7 @@ class Planner:
         for k, v in out.items():
             if torch.is_tensor(v) and v.ndim and v.shape[0] == n:
                 parts = gather(v.detach(), self.mesh)
-                parts[self.mesh.get_local_rank()] = v
+                parts[data_rank(self.mesh)] = v
                 whole[k] = torch.cat(parts)
         return whole
 

@@ -53,14 +53,19 @@ batch against the CPU's, train() through two K-step chunks on the
 device-resident episode and a resume, and through its host loop (equal
 bit for bit), the loss falling; train steps/s, the step's split
 (prepare, forward + backward, Adam), launches, idle share and peak
-memory; no contact kernel. Then the 1-D data mesh (mesh_path): an NCCL
+memory; no contact kernel. Then the data mesh (mesh_path): an NCCL
 process group of one process through a FileStore, parallel.make_mesh()
 over it, train() through one chunk with the mesh and without (params and
 losses equal bit for bit), a train chunk with and without the mesh timed
 in turns, plan_path's Planner again with the mesh (its act_seq equal bit
-for bit to plan_path's), the tiled neighbor list against the dense one at
-the rope's 5,120 particles (equal), no contact kernel, the group
-destroyed. Then the closed planning loop (loop_path):
+for bit to plan_path's); then the 2-D data x model layout at (1, 1) over
+the same group (parallel.make_mesh_2d, shard_params_model: every layer
+of train_path's model column-parallel), its steps, its gathered params
+and train() with the 2-D mesh equal bit for bit to those without a mesh,
+a chunk with the layout and without timed in turns; the group
+destroyed, the tiled neighbor list against the dense one at the rope's
+5,120 particles (equal), no contact kernel. Then the closed
+planning loop (loop_path):
 planning.plan.plan() on SimPlanEnv, the sim path's scene, at the rope
 task's full width (200 objects, the pcd target built from the card's own
 first observation, the action box recentred on the rope; 2,500 sampled
@@ -275,7 +280,18 @@ TRAIN_TIME_CHUNKS, TRAIN_SPLIT_STEPS = 3, 3
 # the mesh, its act_seq equal bit for bit to plan_path's; the tiled
 # neighbor list (tile MESH_TILE) against the dense one on the rope's
 # 5,120 built positions at the sparse path's radius (1.5 particle radii),
-# equal; no contact kernel. The group is destroyed before the next phase
+# equal; no contact kernel. The group is destroyed before the next phase.
+# The 2-D layout (mesh_2d, after mesh_plan): parallel.make_mesh_2d(1, 1)
+# over the same group and shard_params_model on train_path's model, where
+# every layer is column-parallel (the model axis of 1 divides every out
+# width), so every gather and sum of the column-parallel pair runs; a
+# chunk of MESH_TIME_STEPS steps through make_train_step on the 2-D mesh
+# equal bit for bit to the same chunk without a mesh (losses and the
+# gathered params); gather_params_model equal to the model's own
+# state_dict; train() through one chunk with the 2-D mesh equal to
+# mesh_train's train() without one; a chunk with the layout and without
+# timed in turns (without, with, with, without) for train steps/s, then
+# one step each way under torch.profiler (launches, device busy ms)
 MESH_BACKEND, MESH_TILE, MESH_NEIGHBOR_K = "nccl", 1024, 32
 MESH_TIME_STEPS = 4
 # batched episodes (batch_path): sim.batch_env.generate_batch over
@@ -2418,6 +2434,9 @@ def mesh_phases(dev, dyn, root, replan, rope, batch=None):
         if not r["ok"]:
             raise RuntimeError("the Planner with the mesh chose another "
                                "act_seq than plan_path's")
+
+        layout = mesh_2d_phase(dev, cfg, root, b, d, common, pairs["train"],
+                               runs["plain"][0])
     finally:
         dist.destroy_process_group()
 
@@ -2449,7 +2468,104 @@ def mesh_phases(dev, dyn, root, replan, rope, batch=None):
             "train_seconds_plain": plain_s, "train_seconds_mesh": mesh_s,
             "train_steps_per_s_plain": times["train_steps_per_s_plain"],
             "train_steps_per_s_mesh": times["train_steps_per_s_mesh"],
-            "plan_seconds_mesh": plan_s}
+            "plan_seconds_mesh": plan_s, "layout_2d": layout}
+
+
+def mesh_2d_phase(dev, cfg, root, b, d, common, pairs, plain):
+    """The 2-D (data, model) layout at (1, 1) over the running group
+    (mesh_path): `cfg`, `b` and the dataset `d` with its device-resident
+    `common` and `pairs` as mesh_train_times takes them, `plain` the
+    (params, history) of mesh_train's train() without a mesh. Returns the
+    phase's numbers."""
+    from adaptigraph_torch.dynamics import train as tt
+    from adaptigraph_torch.parallel import (gather_params_model,
+                                            make_mesh_2d, shard_params_model)
+    from adaptigraph_torch.parallel.mesh import ColumnDense
+    from adaptigraph_torch.tools.profile_frame import profiled
+
+    _phase[0] = "mesh_2d"
+    t_start = time.perf_counter()
+    mesh = make_mesh_2d(1, 1, device=dev)
+    tcfg = cfg["train_config"]
+    seed = int(tcfg.get("random_seed", 42))
+    models, chunks = {}, {}
+    for name in ("plain", "layout"):
+        model = tt.init_model(cfg, d, device=dev)[0]
+        if name == "layout":
+            shard_params_model(model, mesh)
+        opt, _ = tt.make_optimizer(model.parameters(),
+                                   float(tcfg.get("lr", 1e-3)))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        models[name] = model
+        chunks[name] = tt.make_train_chunk(
+            model, d.n_future, opt, d, common, pairs, gen,
+            mesh=mesh if name == "layout" else None)[0]
+    column = sum(isinstance(m, ColumnDense)
+                 for m in models["layout"].modules())
+    table = np.random.RandomState(seed + 7).randint(0, len(d),
+                                                    (MESH_TIME_STEPS, b))
+    losses = {n: sync_time(lambda: chunks[n](table))[0] for n in chunks}
+    # read before the timed chunks step the models on
+    whole = gather_params_model(models["layout"], mesh)
+    own = models["layout"].state_dict()
+    want = models["plain"].state_dict()
+    steps_equal = bool(torch.equal(losses["plain"], losses["layout"])
+                       and all(torch.equal(whole[k], want[k]) for k in want))
+    steps_diff = max(float((whole[k] - want[k]).abs().max()) for k in want)
+    gathered_equal_own = all(torch.equal(whole[k], own[k]) for k in own)
+    # train() through one chunk with the 2-D mesh
+    c = cfg.override({"train_config": {
+        "out_dir": os.path.join(root, "mesh_2d")}})
+    with contextlib.redirect_stdout(io.StringIO()):
+        (tp, th), train_s = sync_time(lambda: tt.train(
+            c, epochs=1, iters=TRAIN_K, batch_size=b, device=dev,
+            steps_per_call=TRAIN_K, mesh=mesh))
+    pp, ph = plain
+    # a chunk with the layout and without, in turns
+    secs = {"plain": [], "layout": []}
+    for name in ("plain", "layout", "layout", "plain"):
+        secs[name].append(sync_time(lambda: chunks[name](table))[1])
+    # one step each way under torch.profiler: where the layout's time goes
+    prof = {}
+    for name in ("plain", "layout"):
+        p = profiled(lambda: chunks[name](table[:1]), 1)
+        prof[name] = {"launches_per_step": p["kernel_launches_per_frame"],
+                      "device_busy_ms_per_step":
+                          p["device_busy_ms_per_frame"],
+                      "device_idle_share": p["device_idle_share"],
+                      "wall_ms_per_step": p["wall_ms_per_frame"],
+                      "top_kernels": p["top_kernels"][:6]}
+    n = MESH_TIME_STEPS
+    r = {"phase": "mesh_2d", "mesh_shape": list(mesh.shape),
+         "mesh_dim_names": list(mesh.mesh_dim_names),
+         "column_parallel_layers": column,
+         "layers": len(models["plain"].cfg.layer_shapes()),
+         "batch": b, "steps": n,
+         "losses_plain": losses["plain"].tolist(),
+         "losses_layout": losses["layout"].tolist(),
+         "steps_equal": steps_equal, "steps_params_max_abs_diff": steps_diff,
+         "gathered_equal_own": gathered_equal_own,
+         "train_equal": bool(th == ph and all(torch.equal(tp[k], pp[k])
+                                              for k in pp)),
+         "train_seconds_2d": train_s,
+         "order": "plain, layout, layout, plain", "chunk_seconds": secs,
+         "train_steps_per_s_plain": n / float(np.mean(secs["plain"])),
+         "train_steps_per_s_layout": n / float(np.mean(secs["layout"])),
+         "profiled": prof, "seconds": time.perf_counter() - t_start}
+    r["ok"] = (r["mesh_shape"] == [1, 1]
+               and r["mesh_dim_names"] == ["data", "model"]
+               and column == r["layers"] and r["steps_equal"]
+               and r["gathered_equal_own"] and r["train_equal"])
+    emit(r)
+    if not r["ok"]:
+        raise RuntimeError("the 2-D layout at (1, 1) differs from the steps "
+                           "without a mesh, or not every layer went "
+                           "column-parallel")
+    return {k: r[k] for k in (
+        "column_parallel_layers", "steps_equal", "steps_params_max_abs_diff",
+        "train_equal", "train_seconds_2d", "chunk_seconds",
+        "train_steps_per_s_plain", "train_steps_per_s_layout", "profiled",
+        "seconds")}
 
 
 def toy_graph_batch(dev, b=8, n_obj=100, n_eef=1, n_his=4, max_nr=1000,

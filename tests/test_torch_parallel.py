@@ -308,17 +308,12 @@ def _cases(rank, inp):
                    "files": sorted(os.listdir(save))
                    if os.path.isdir(save) else None}
 
-    # what the port refuses: a 2-D mesh, another dim name, a mesh that is
-    # not the world, a backend that cannot carry the device's tensors
+    # what the port refuses: another dim name, a mesh that is not the
+    # world, a backend that cannot carry the device's tensors (the 2-D
+    # mesh: tests/test_torch_parallel_2d.py)
     refused = {}
-    m2 = init_device_mesh("cpu", (1, WORLD), mesh_dim_names=("data",
-                                                             "model"))
     other = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
     checks = {
-        "shard_2d": lambda: pm.shard_batch({"x": torch.zeros(4)}, m2),
-        "planner_2d": lambda: Planner(planner_config(
-            "MPPI", inp["draws"]["MPPI"], m2)),
-        "train_2d": lambda: tt.train(tr["cfg"], mesh=m2, device="cpu"),
         "train_model_axis": lambda: tt.train(tr["cfg"], mesh=other,
                                              device="cpu"),
         "mesh_3": lambda: pm.make_mesh(3, device="cpu"),
@@ -666,17 +661,15 @@ def test_plan_on_two_ranks_chooses_one_processs_push(world):
 
 
 def test_a_2d_mesh_and_other_meshes_raise(world):
-    """A 2-D mesh, or a 1-D mesh named otherwise, raises
-    NotImplementedError naming the next slice; a mesh that is not the
-    world raises ValueError; gloo cannot carry CUDA tensors, and
-    make_mesh says so instead of falling back."""
+    """A 1-D mesh named otherwise raises NotImplementedError naming the
+    port's layouts; a mesh that is not the world raises ValueError; gloo
+    cannot carry CUDA tensors, and make_mesh says so instead of falling
+    back. The 2-D mesh runs: tests/test_torch_parallel_2d.py."""
     for out in world["ranks"]:
         ref = out["refused"]
-        for name in ("shard_2d", "planner_2d", "train_2d",
-                     "train_model_axis"):
-            kind, msg = ref[name]
-            assert kind == "NotImplementedError", (name, ref[name])
-            assert "next slice" in msg and "make_mesh_2d" in msg
+        kind, msg = ref["train_model_axis"]
+        assert kind == "NotImplementedError", ref["train_model_axis"]
+        assert "make_mesh_2d" in msg and "data axis first" in msg
         for name in ("mesh_3", "mesh_1"):
             assert ref[name][0] == "ValueError", ref[name]
         assert ref["mesh_cuda"][0] == "RuntimeError"
@@ -699,15 +692,26 @@ def test_make_mesh_needs_a_process_group(monkeypatch):
 
 def test_smoke_mesh_path_runs_on_the_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's mesh phases, rehearsed with the CPU in the card's
-    place at world size 1 over gloo: train() with the mesh equals train()
-    without it bit for bit, a toy Planner with the mesh equals it without,
-    the tiled neighbor list the dense one; no contact kernel; the group
-    destroyed after."""
+    place at world size 1 over gloo (the profiler replaced by a host
+    clock): train() with the mesh equals train() without it bit for bit,
+    a toy Planner with the mesh equals it without, the 2-D layout at
+    (1, 1) (every layer column-parallel) equals the steps and train()
+    without a mesh bit for bit, the tiled neighbor list the dense one; no
+    contact kernel; the group destroyed after."""
     import json
 
     import chip_smoke as cs
     from adaptigraph_torch.planning import Planner
+    from adaptigraph_torch.tools import profile_frame
 
+    def host_profile(fn, frames):
+        t0 = time.perf_counter()
+        fn()
+        return {"wall_ms_per_frame": 1e3 * (time.perf_counter() - t0) / frames,
+                "device_busy_ms_per_frame": 0.0, "device_idle_share": 1.0,
+                "kernel_launches_per_frame": 0.0, "top_kernels": []}
+
+    monkeypatch.setattr(profile_frame, "profiled", host_profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "MESH_BACKEND", "gloo")
     monkeypatch.setattr(cs, "TRAIN_K", 2)
@@ -735,10 +739,15 @@ def test_smoke_mesh_path_runs_on_the_cpu(tmp_path, monkeypatch):
                          batch=8)
     assert [ln["phase"] for ln in lines] == [
         "mesh_init", "mesh_train", "mesh_train_times", "mesh_plan",
-        "mesh_neighbors"]
+        "mesh_2d", "mesh_neighbors"]
     assert all(ln["ok"] for ln in lines)
     assert lines[0]["backend"] == "gloo" and lines[0]["mesh_size"] == 1
     assert lines[1]["params_equal"] and lines[3]["act_seq_equal"]
-    assert lines[4]["idx_equal"] and lines[4]["neighbors"] > 0
+    two = lines[4]
+    assert two["column_parallel_layers"] == two["layers"] == 11
+    assert two["steps_equal"] and two["train_equal"]
+    assert two["steps_params_max_abs_diff"] == 0.0
+    assert set(two["profiled"]) == {"plain", "layout"}
+    assert lines[5]["idx_equal"] and lines[5]["neighbors"] > 0
     assert not any(out["counts"].values())
     assert not dist.is_initialized()

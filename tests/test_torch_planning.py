@@ -796,9 +796,9 @@ def test_planning_entry_points_raise_without_a_device(small, monkeypatch,
     from tests.test_torch_parallel import one_rank_group
 
     with one_rank_group(tmp_path / "store"):
-        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
-                                                              "model"))
-        with pytest.raises(NotImplementedError, match="next slice"):
+        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("model",
+                                                              "data"))
+        with pytest.raises(NotImplementedError, match="data axis first"):
             TPlanner(dict(cfg, device="cpu", mesh=m2))
 
 

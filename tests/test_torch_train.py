@@ -485,10 +485,10 @@ def test_train_wall_budget_and_missing_matplotlib(world, tmp_path,
 
 def test_train_refuses_a_mesh_and_needs_a_device(world, tmp_path,
                                                  monkeypatch):
-    """train() takes a 1-D ('data',) DeviceMesh only: anything else than
-    a DeviceMesh raises TypeError, a 2-D mesh NotImplementedError (the
-    next slice of the port); without a device and without CUDA it
-    raises."""
+    """train() takes a 1-D ('data',) or 2-D ('data', 'model') DeviceMesh
+    only: anything else than a DeviceMesh raises TypeError, a mesh whose
+    first dim is not 'data' NotImplementedError; without a device and
+    without CUDA it raises."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from tests.test_torch_parallel import one_rank_group
@@ -497,9 +497,9 @@ def test_train_refuses_a_mesh_and_needs_a_device(world, tmp_path,
     with pytest.raises(TypeError, match="DeviceMesh"):
         tt.train(_tiny(tcfg, tmp_path), mesh=object(), device="cpu")
     with one_rank_group(tmp_path / "store"):
-        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
-                                                              "model"))
-        with pytest.raises(NotImplementedError, match="next slice"):
+        m2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("model",
+                                                              "data"))
+        with pytest.raises(NotImplementedError, match="data axis first"):
             tt.train(_tiny(tcfg, tmp_path), mesh=m2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
