@@ -16,6 +16,8 @@ on the raw windows' device for the whole batch at once:
 used is drawn (augment off: no state noise, no rotation; phys_noise 0: no
 physics noise). The rotation is written out element by element and its
 cos and sin taken in float64, so that the card and the CPU round it alike.
+Its spans (utils/profiling): `prepare.fps` (both FPS stages) and
+`prepare.edges` (the radius graph).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from adaptigraph_torch.ops.edges import (build_edges_batch,
                                          build_edges_slotted_batch)
 from adaptigraph_torch.ops.fps import fps_subsample_batch, start_ranks
 from adaptigraph_torch.sim.episode_io import load_property_params
+from adaptigraph_torch.utils import profiling
 from adaptigraph_torch.utils.geometry import rotation_2d_z
 
 
@@ -213,9 +216,10 @@ def prepare_graph_batch(raw, draws, *, n_his, n_future, max_nobj, max_nR,
     n_eef = eef.shape[2]
 
     raw_valid = torch.arange(n_raw, device=dev)[None, :] < nobj_raw[:, None]
-    fps_idx, keep = fps_subsample_batch(obj[:, n_his - 1], max_nobj,
-                                        draws["fps_r"], draws["fps_ranks"],
-                                        raw_valid)
+    with profiling.span("prepare.fps"):
+        fps_idx, keep = fps_subsample_batch(obj[:, n_his - 1], max_nobj,
+                                            draws["fps_r"],
+                                            draws["fps_ranks"], raw_valid)
     gather = fps_idx.long()[:, None, :, None].expand(b, t_w, max_nobj, 3)
     keep_f = keep.to(torch.float32)
     obj_kp = torch.gather(obj, 2, gather) * keep_f[:, None, :, None]
@@ -253,16 +257,17 @@ def prepare_graph_batch(raw, draws, *, n_his, n_future, max_nobj, max_nR,
         delta_future = _rotate(delta_future, rot)
         obj_future = _rotate(obj_future, rot)
 
-    if slotted:
-        edges = build_edges_slotted_batch(
-            state_history[:, -1], draws["adj_r"], state_mask, eef_mask,
-            topk=topk, connect_tools_all=connect_tool_all,
-            tools_only_when_near=False, tool_slots=n_eef)
-    else:
-        edges = build_edges_batch(
-            state_history[:, -1], draws["adj_r"], state_mask, eef_mask,
-            topk=topk, connect_tools_all=connect_tool_all,
-            tools_only_when_near=False, max_edges=max_nR)
+    with profiling.span("prepare.edges"):
+        if slotted:
+            edges = build_edges_slotted_batch(
+                state_history[:, -1], draws["adj_r"], state_mask, eef_mask,
+                topk=topk, connect_tools_all=connect_tool_all,
+                tools_only_when_near=False, tool_slots=n_eef)
+        else:
+            edges = build_edges_batch(
+                state_history[:, -1], draws["adj_r"], state_mask, eef_mask,
+                topk=topk, connect_tools_all=connect_tool_all,
+                tools_only_when_near=False, max_edges=max_nR)
     return {
         "state": state_history,
         "action": states_delta,

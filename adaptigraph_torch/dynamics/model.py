@@ -29,6 +29,12 @@ flax's Dense(dtype=bfloat16) does, and the state itself is cast, so the
 predicted position is formed in the compute dtype before the cast to
 float32. Module and parameter names are flax's (`particle_encoder.Dense_0`
 and so on), and `params_from_jax` carries a flax parameter tree across.
+
+Spans of the forward (utils/profiling): `model.incidence` (the aggregation
+mode's tables: in matmul mode the one-hot incidence), `model.gather` and
+`model.aggregate` (each call of the mode's gather and aggregation) and
+`model.relation_mlp` (the relation encoder and each propagator pass over
+every edge slot).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adaptigraph_torch.utils import profiling
 from adaptigraph_torch.utils.device import full_f32_matmul, resolve_device
 
 
@@ -239,8 +246,9 @@ class DynamicsPredictor(nn.Module):
             p_in.append(torch.where(is_obj, den, torch.zeros_like(den)))
         p_inputs = torch.cat(p_in, dim=-1)
 
-        gather_rs, aggregate = _aggregation(cfg.aggregation, recv, send, n,
-                                            dt)
+        with profiling.span("model.incidence"):
+            gather_rs, aggregate = _aggregation(cfg.aggregation, recv, send,
+                                                n, dt)
 
         # ---- edge features (the reference's gnn/model.py:209-265) ----
         ev = edge_valid.to(dt)[..., None]
@@ -256,8 +264,10 @@ class DynamicsPredictor(nn.Module):
         if cfg.rel_distance_dim > 0:
             nodes.append(state_feat)
         widths = [x.shape[-1] for x in nodes]
-        at_r, at_s = (torch.split(x, widths, dim=-1)
-                      for x in gather_rs(torch.cat(nodes, dim=-1)))
+        node_table = torch.cat(nodes, dim=-1)
+        with profiling.span("model.gather"):
+            both = gather_rs(node_table)
+        at_r, at_s = (torch.split(x, widths, dim=-1) for x in both)
         rel_in, k = [], 0
         if cfg.rel_particle_dim > 0:
             rel_in += [at_r[k], at_s[k]]
@@ -273,14 +283,18 @@ class DynamicsPredictor(nn.Module):
         rel_inputs = torch.cat(rel_in, dim=-1) * ev
 
         node_enc = self.particle_encoder(p_inputs)
-        edge_enc = self.relation_encoder(rel_inputs) * ev
+        with profiling.span("model.relation_mlp"):
+            edge_enc = self.relation_encoder(rel_inputs) * ev
 
         effect = node_enc
         for _ in range(cfg.pstep):
-            e_r, e_s = gather_rs(effect)
-            edge_effect = self.relation_propagator(
-                torch.cat([edge_enc, e_r, e_s], dim=-1)) * ev
-            agg = aggregate(edge_effect)
+            with profiling.span("model.gather"):
+                e_r, e_s = gather_rs(effect)
+            with profiling.span("model.relation_mlp"):
+                edge_effect = self.relation_propagator(
+                    torch.cat([edge_enc, e_r, e_s], dim=-1)) * ev
+            with profiling.span("model.aggregate"):
+                agg = aggregate(edge_effect)
             effect = self.particle_propagator(
                 torch.cat([node_enc, agg], dim=-1), res=effect)
 

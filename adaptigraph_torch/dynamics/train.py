@@ -18,6 +18,13 @@ Structure on the device:
     otherwise `train` runs the per-step host loop over
     DynDataset.raw_batch.
 
+Spans (utils/profiling), no counters, so that a traced step launches what
+an untraced one does: `train.chunk` around a chunk, `train.step` around
+each of its steps, `train.batch` (the gather and the graph draws),
+`train.prepare` (the graph assembly, its children `prepare.fps` and
+`prepare.edges`), `train.forward` (the unrolled loss), `train.backward`
+and `train.adam` (Adam's step and the scheduler's).
+
 On a mesh (parallel/mesh.py's 1-D data mesh or 2-D data x model mesh,
 one process a device) each rank draws the whole batch's indices and
 graph draws, keeps its data row's rows (shard_batch's rule: a batch the
@@ -65,7 +72,7 @@ from adaptigraph_torch.parallel.mesh import (barrier, check_data_mesh,
                                              init_from_env, local_rows,
                                              make_mesh, mean_over, replicate,
                                              shard_batch, world_size)
-from adaptigraph_torch.utils import load_config
+from adaptigraph_torch.utils import load_config, profiling
 from adaptigraph_torch.utils.device import full_f32_matmul, resolve_device
 from adaptigraph_torch.utils.profiling import plot_loss_curves
 
@@ -184,14 +191,17 @@ def make_train_step(model, n_future: int, optimizer, scheduler=None,
 
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = unrolled_loss(params, batch)
-        loss.backward()
+        with profiling.span("train.forward"):
+            loss = unrolled_loss(params, batch)
+        with profiling.span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         if mesh is not None:
             loss = mean_grads_and_loss(params, loss, mesh)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with profiling.span("train.adam"):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         return loss
 
     def eval_step(batch):
@@ -276,13 +286,20 @@ def make_train_chunk(model, n_future: int, optimizer, dataset: DynDataset,
     dev = common["obj"].device
 
     def batch_graphs(idx_row):
-        raw = _gather_raw(common, pairs, idx_row)
-        draws = draw_prepare(generator, raw, dataset)
-        return prepare(*split_batch(raw, draws, mesh))
+        with profiling.span("train.batch"):
+            raw = _gather_raw(common, pairs, idx_row)
+            draws = draw_prepare(generator, raw, dataset)
+        with profiling.span("train.prepare"):
+            return prepare(*split_batch(raw, draws, mesh))
+
+    def one_step(step, row):
+        with profiling.span("train.step"):
+            return step(batch_graphs(row))
 
     def run(step, idxs):
-        idxs = torch.as_tensor(idxs).to(dev)
-        return torch.stack([step(batch_graphs(row)) for row in idxs])
+        with profiling.span("train.chunk"):
+            idxs = torch.as_tensor(idxs).to(dev)
+            return torch.stack([one_step(step, row) for row in idxs])
 
     return partial(run, train_step), partial(run, eval_step)
 

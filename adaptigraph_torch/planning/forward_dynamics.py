@@ -14,6 +14,14 @@ a whole chunk. The repeat loop always runs to the static maximum
 repeat count, so no step waits on the host. `n_sample_chunk` bounds the
 live memory: a larger population runs chunk after chunk, padded to a
 multiple of the chunk by repeating sample 0 and sliced back.
+
+Spans (utils/profiling): `rollout.chunk` around a chunk, `rollout.forward`
+around each model forward and `rollout.edges` around each edge rebuild,
+each tagged with the chunk's batch. Counters: `rollout.sample_forwards_run`
+(batch x repeats run, a chunk and look-ahead step),
+`rollout.sample_forwards_needed` (each real sample's own repeats; chunk
+padding rows are run, not needed), and for each forward
+`rollout.edge_slots`, `rollout.valid_edges` and `rollout.valid_nodes`.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from torch.func import functional_call
 
 from adaptigraph_torch.ops.edges import build_edges_slotted_batch
 from adaptigraph_torch.planning.actions import decode_action
+from adaptigraph_torch.utils import profiling
 from adaptigraph_torch.utils.batch import pad_samples
 
 
@@ -89,15 +98,25 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
                 / torch.clamp(mask.sum(-1), min=1))
 
     def edges(states, state_mask, eef_mask):
-        e = build_edges_slotted_batch(states, adj_thresh, state_mask,
-                                      eef_mask, topk=topk,
-                                      connect_tools_all=cta,
-                                      tools_only_when_near=True)
+        with profiling.span("rollout.edges", states.shape[0]):
+            e = build_edges_slotted_batch(states, adj_thresh, state_mask,
+                                          eef_mask, topk=topk,
+                                          connect_tools_all=cta,
+                                          tools_only_when_near=True)
+        profiling.count("rollout.edge_slots", e.valid.numel())
+        profiling.count("rollout.valid_edges", e.valid)
+        profiling.count("rollout.valid_nodes", state_mask)
         return e.receivers, e.senders, e.valid
 
-    def run(params, state, mask, acts, physics):
+    def run(params, state, mask, acts, physics, real=None):
         """One chunk: state (B, nobj, 3), mask (B, nobj), acts (B, n_look,
-        4), physics (B, phys) -> (B, n_look, nobj, 3)."""
+        4), physics (B, phys) -> (B, n_look, nobj, 3). The first `real`
+        rows (all when None) are the population's; the rest pad the
+        chunk."""
+        with profiling.span("rollout.chunk", state.shape[0]):
+            return _run(params, state, mask, acts, physics, real)
+
+    def _run(params, state, mask, acts, physics, real):
         b, nobj = state.shape[:2]
         n_look = acts.shape[1]
         dev = state.device
@@ -116,6 +135,9 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
         preds = []
         for li in range(n_look):
             decoded, repeats = decoded_all[:, li], repeats_all[:, li]
+            profiling.count("rollout.sample_forwards_run", b * max_repeat)
+            profiling.count("rollout.sample_forwards_needed",
+                            repeats[:real])
             y = obj_y(last, mask)
             eef_kp, eef_delta = eef_geometry(decoded, acts[:, li, 2], y)
             hist = torch.cat([last, eef_kp], dim=1)[:, None].expand(
@@ -129,10 +151,11 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
                 # message net is not parity-equivariant: mirror in and out
                 # at the model boundary. Edges come from plan-frame states;
                 # distances are mirror-invariant, so the same lists apply.
-                pred, _ = functional_call(
-                    model, params, (_negz(hist), attrs, recv, send, valid,
-                                    p_instance, physics),
-                    {"action": _negz(delta)})
+                with profiling.span("rollout.forward", b):
+                    pred, _ = functional_call(
+                        model, params, (_negz(hist), attrs, recv, send,
+                                        valid, p_instance, physics),
+                        {"action": _negz(delta)})
                 pred = _negz(pred)
                 pred = torch.where(mask[..., None], pred,
                                    torch.zeros_like(pred))
@@ -165,7 +188,8 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
             args = [pad_samples(x, pad) for x in (state_b, mask_b, actions,
                                                   phys_b)]
             seqs = torch.cat([
-                run(params, *(x[i:i + chunk_size] for x in args))
+                run(params, *(x[i:i + chunk_size] for x in args),
+                    real=min(chunk_size, s - i))
                 for i in range(0, s + pad, chunk_size)])[:s]
         else:
             seqs = run(params, state_b, mask_b, actions, phys_b)

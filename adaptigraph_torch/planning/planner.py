@@ -19,6 +19,10 @@ same argmax. GD steps each rank's rows with its own Adam (Adam is
 elementwise) on the gradient of the whole population's mean reward. A
 population the whole mesh does not divide is rolled out whole on every
 rank, as JAX replicates it.
+
+Spans (utils/profiling): `plan.call` around trajectory_optimization,
+`plan.iteration` around each MPPI iteration and `plan.score` around each
+call of the evaluator, tagged with the population it scores.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from adaptigraph_torch.planning.actions import (clip_actions,
                                                 draw_action_noise,
                                                 optimize_action_mppi,
                                                 sample_action_seq)
+from adaptigraph_torch.utils import profiling
 from adaptigraph_torch.utils.device import resolve_device
 
 
@@ -86,11 +91,12 @@ class Planner:
         act_seq = torch.as_tensor(act_seq, dtype=torch.float32,
                                   device=self.device)
         noise = self._noise(seed)
-        if self.planner_type == "MPPI":
-            return self._mppi(state_cur, act_seq, noise)
-        if self.planner_type == "GD":
+        if self.planner_type not in ("MPPI", "GD"):
+            raise ValueError(f"unknown planner type {self.planner_type}")
+        with profiling.span("plan.call"):
+            if self.planner_type == "MPPI":
+                return self._mppi(state_cur, act_seq, noise)
             return self._gd(state_cur, act_seq, noise)
-        raise ValueError(f"unknown planner type {self.planner_type}")
 
     def _sample(self, act_seq, noise, i):
         n_look, adim = act_seq.shape
@@ -119,8 +125,12 @@ class Planner:
             if acts is None:
                 acts = self._gathered({"a": own}, own.shape[0])["a"]
         acts = own if acts is None else acts
-        return model_out, self.evaluate_traj(model_out["state_seqs"], acts,
-                                             state_cur=state_cur)
+        return model_out, self._evaluate(model_out, acts, state_cur)
+
+    def _evaluate(self, model_out, acts, state_cur):
+        with profiling.span("plan.score", acts.shape[0]):
+            return self.evaluate_traj(model_out["state_seqs"], acts,
+                                      state_cur=state_cur)
 
     def _gathered(self, out, n):
         whole = dict(out)
@@ -135,9 +145,7 @@ class Planner:
         if not self.rollout_best:
             return None, None
         model_out = self.model_rollout(state_cur, act_seq[None])
-        eval_out = self.evaluate_traj(model_out["state_seqs"], act_seq[None],
-                                      state_cur=state_cur)
-        return model_out, eval_out
+        return model_out, self._evaluate(model_out, act_seq[None], state_cur)
 
     @torch.no_grad()
     def _mppi(self, state_cur, act_seq, noise):
@@ -145,17 +153,19 @@ class Planner:
         model_outputs, eval_outputs = [], []
         rows = self._rows()
         for i in range(self.n_update_iter):
-            act_seqs = self._sample(act_seq, noise, i)
-            own = act_seqs if rows is None else act_seqs[rows]
-            model_out, eval_out = self._score(state_cur, own, rows, act_seqs)
-            rewards = eval_out["reward_seqs"]
-            act_seq = optimize_action_mppi(act_seqs, rewards,
-                                           self.reward_weight, self.lower,
-                                           self.upper, self.push_length)
-            bi = int(torch.argmax(rewards))  # the first index on ties
-            if best_act is None or float(rewards[bi]) > best_reward:
-                best_act = act_seqs[bi]
-                best_reward = float(rewards[bi])
+            with profiling.span("plan.iteration", i):
+                act_seqs = self._sample(act_seq, noise, i)
+                own = act_seqs if rows is None else act_seqs[rows]
+                model_out, eval_out = self._score(state_cur, own, rows,
+                                                  act_seqs)
+                rewards = eval_out["reward_seqs"]
+                act_seq = optimize_action_mppi(act_seqs, rewards,
+                                               self.reward_weight, self.lower,
+                                               self.upper, self.push_length)
+                bi = int(torch.argmax(rewards))  # the first index on ties
+                if best_act is None or float(rewards[bi]) > best_reward:
+                    best_act = act_seqs[bi]
+                    best_reward = float(rewards[bi])
             if self.verbose:
                 model_outputs.append(model_out)
                 eval_outputs.append(eval_out)

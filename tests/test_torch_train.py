@@ -558,22 +558,19 @@ def test_smoke_train_path_runs_on_the_cpu(world, tmp_path, monkeypatch):
 
 
 def test_profiling_helpers(tmp_path):
-    """utils/profiling.py: Timer and MetricsLogger as JAX's, trace() as a
-    torch.profiler capture written to trace.json, annotate() inside it."""
+    """utils/profiling.py: the port's tracer replaces the JAX package's
+    Timer, MetricsLogger and annotate (the JAX package keeps its own);
+    trace() is a torch.profiler capture written to trace.json, with a
+    program span of the capture in it."""
     from adaptigraph_torch.utils import profiling as tp
     from adaptigraph_tpu.utils import profiling as jp
 
-    for mod in (tp, jp):
-        timer = mod.Timer()
-        for _ in range(2):
-            with timer("step"):
-                pass
-        assert timer.count["step"] == 2 and "step:" in timer.report()
-        log = mod.MetricsLogger(str(tmp_path / mod.__name__ / "m.jsonl"))
-        log.log(0, loss=1.5)
-        log.log(1, loss=0.5)
-        assert [r["loss"] for r in log.read()] == [1.5, 0.5]
+    for name in ("Timer", "MetricsLogger", "annotate"):
+        assert hasattr(jp, name) and not hasattr(tp, name)
+    assert callable(tp.plot_loss_curves) and callable(jp.plot_loss_curves)
     with tp.trace(str(tmp_path / "trace")):
-        with tp.annotate("matmul"):
+        with tp.span("matmul"):
             torch.ones(4, 4) @ torch.ones(4, 4)
-    assert "matmul" in (tmp_path / "trace" / "trace.json").read_text()
+    text = (tmp_path / "trace" / "trace.json").read_text()
+    assert '"matmul"' in text and "aten::mm" in text
+    tp.reset()
