@@ -15,13 +15,26 @@ repeat count, so no step waits on the host. `n_sample_chunk` bounds the
 live memory: a larger population runs chunk after chunk, padded to a
 multiple of the chunk by repeating sample 0 and sliced back.
 
+The rollout runs on the object rows some sample holds only: once a call,
+before chunking, it reads which rows of the mask any sample holds (one
+host read), runs every chunk on those rows (ascending, so the edge
+builder's stable sorts and ties pick the same neighbours, renumbered) and
+scatters the result back into the padded layout. A row no sample holds is
+read by nothing valid (an edge needs both ends valid, the model reduces
+over edges alone), and the full-width loop leaves it at the input state
+until a look-ahead step with 1 to max repeats, and at zero from then on:
+the scatter writes that. A mask that holds every row runs at full width.
+
 Spans (utils/profiling): `rollout.chunk` around a chunk, `rollout.forward`
 around each model forward and `rollout.edges` around each edge rebuild,
 each tagged with the chunk's batch. Counters: `rollout.sample_forwards_run`
 (batch x repeats run, a chunk and look-ahead step),
 `rollout.sample_forwards_needed` (each real sample's own repeats; chunk
 padding rows are run, not needed), and for each forward
-`rollout.edge_slots`, `rollout.valid_edges` and `rollout.valid_nodes`.
+`rollout.edge_slots`, `rollout.valid_edges` and `rollout.valid_nodes`
+(what the edge builder is given); `rollout.node_slots_run` and
+`rollout.node_slots_full` (batch x node rows run, and batch x node rows of
+the padded layout, a chunk and look-ahead step).
 """
 
 from __future__ import annotations
@@ -43,6 +56,17 @@ def _negz(x):
 def _batch(x, s, ndim):
     """x with a leading sample axis of s: broadcast when x lacks it."""
     return x[None].expand((s,) + tuple(x.shape)) if x.dim() == ndim else x
+
+
+def _kept_rows(mask):
+    """The object rows (ascending, on the mask's device) that some sample
+    of mask (nobj,) or (S, nobj) holds; None where that is every row or
+    none. One read of the mask by the host."""
+    m = mask if mask.dim() == 1 else mask.bool().any(0)
+    kept = torch.nonzero(m.cpu().bool()).squeeze(1)
+    if kept.numel() in (0, m.numel()):
+        return None
+    return kept.to(mask.device)
 
 
 def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
@@ -108,15 +132,15 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
         profiling.count("rollout.valid_nodes", state_mask)
         return e.receivers, e.senders, e.valid
 
-    def run(params, state, mask, acts, physics, real=None):
+    def run(params, state, mask, acts, physics, full, real=None):
         """One chunk: state (B, nobj, 3), mask (B, nobj), acts (B, n_look,
-        4), physics (B, phys) -> (B, n_look, nobj, 3). The first `real`
-        rows (all when None) are the population's; the rest pad the
-        chunk."""
+        4), physics (B, phys) -> (B, n_look, nobj, 3). `full` is the
+        padded layout's object rows. The first `real` rows (all when None)
+        are the population's; the rest pad the chunk."""
         with profiling.span("rollout.chunk", state.shape[0]):
-            return _run(params, state, mask, acts, physics, real)
+            return _run(params, state, mask, acts, physics, full, real)
 
-    def _run(params, state, mask, acts, physics, real):
+    def _run(params, state, mask, acts, physics, full, real):
         b, nobj = state.shape[:2]
         n_look = acts.shape[1]
         dev = state.device
@@ -138,6 +162,8 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
             profiling.count("rollout.sample_forwards_run", b * max_repeat)
             profiling.count("rollout.sample_forwards_needed",
                             repeats[:real])
+            profiling.count("rollout.node_slots_run", b * (nobj + n_pusher))
+            profiling.count("rollout.node_slots_full", b * (full + n_pusher))
             y = obj_y(last, mask)
             eef_kp, eef_delta = eef_geometry(decoded, acts[:, li, 2], y)
             hist = torch.cat([last, eef_kp], dim=1)[:, None].expand(
@@ -175,10 +201,27 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
             last = pred_rec
         return torch.stack(preds, dim=1)
 
+    def widen(seqs, state, kept, repeats):
+        """(S, n_look, k, 3) rows at `kept` -> (S, n_look, nobj, 3) in the
+        padded layout of state (S, nobj, 3): every other row is the input
+        state's until a look-ahead step with 1 to max repeats, zero from
+        then on, as the full-width loop leaves a row no sample holds."""
+        moved = torch.cumsum(((repeats >= 1) & (repeats <= max_repeat))
+                             .to(torch.int32), dim=1) > 0
+        out = torch.where(moved[..., None, None], 0.0, state[:, None])
+        return out.index_copy(2, kept, seqs)
+
     def rollout(params, state, obj_mask, actions, physics_param):
         s = actions.shape[0]
-        state_b = _batch(state, s, 2)
-        mask_b = _batch(obj_mask, s, 1).bool()
+        full = state.shape[-2]
+        kept = _kept_rows(obj_mask)
+        if kept is not None:
+            state_k = state.index_select(-2, kept)
+            mask_k = obj_mask.index_select(-1, kept)
+        else:
+            state_k, mask_k = state, obj_mask
+        state_b = _batch(state_k, s, 2)
+        mask_b = _batch(mask_k, s, 1).bool()
         phys_b = _batch(physics_param, s, 1)
         if chunk_size and s > chunk_size:
             # pad to the next chunk multiple (sample 0 repeated, sliced
@@ -188,12 +231,14 @@ def make_batched_dynamics(model, task_config, eef_y_mode: str = "min"):
             args = [pad_samples(x, pad) for x in (state_b, mask_b, actions,
                                                   phys_b)]
             seqs = torch.cat([
-                run(params, *(x[i:i + chunk_size] for x in args),
+                run(params, *(x[i:i + chunk_size] for x in args), full,
                     real=min(chunk_size, s - i))
                 for i in range(0, s + pad, chunk_size)])[:s]
         else:
-            seqs = run(params, state_b, mask_b, actions, phys_b)
-        decoded, _ = decode_action(actions, push_length)
+            seqs = run(params, state_b, mask_b, actions, phys_b, full)
+        decoded, repeats = decode_action(actions, push_length)
+        if kept is not None:
+            seqs = widen(seqs, _batch(state, s, 2), kept, repeats)
         return {"state_seqs": seqs, "action_seqs": decoded}
 
     return rollout

@@ -15,6 +15,9 @@ Tolerances, with the maxima measured on the CPU:
 - batched rollouts (nf 16, pstep 1, the JAX tests' model) within 1e-5 of
   JAX's, on the rope, granular (5-point board) and cloth (gripper) task
   configs; chunked populations equal to unchunked ones bit for bit;
+  masks that leave rows out of the population (holes, per-sample masks,
+  fewer rows than topk; the port runs the rows held and scatters back)
+  within 1e-5 of JAX's full-width rollout, and so is their gradient;
 - the rope checkpoint carried across by params_from_jax: the masked
   replay of the 15 logged interactions of data/plan_rope and the
   optimiser's dynamics error at physics params 0.2, 0.5 and 0.8 within
@@ -434,6 +437,109 @@ def test_task_config_rollout_matches_jax(material):
     assert t["state_seqs"].shape == (6, 1, 20, 3)
     assert bool(torch.isfinite(t["state_seqs"]).all())
     _close(t["state_seqs"], j["state_seqs"])
+
+
+def _partial_mask(kind, n_sample, nobj, rng):
+    """A mask that leaves object rows out of every sample: (nobj,) with
+    holes (every third row), (nobj,) with few rows (fewer objects and
+    pushers than topk), or (S, nobj) per sample whose union leaves every
+    fourth row out."""
+    if kind == "holes":
+        return np.arange(nobj) % 3 != 2
+    if kind == "few":
+        return np.isin(np.arange(nobj), [1, 4, 5, 9])
+    mask = rng.rand(n_sample, nobj) < 0.7
+    mask[:, 3::4] = False
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["holes", "per_sample", "few"])
+@pytest.mark.parametrize("material", ["rope", "granular"])
+def test_compacted_rollout_matches_jax(material, kind):
+    """Masks that leave rows out of the whole population (the rollout runs
+    on the rows some sample holds and scatters back): JAX's full-width
+    rollout on the rope's 1-point pusher and the granular 5-point board,
+    over two look-ahead steps, one sample's first step of 0 repeats (its
+    left-out rows keep the input state) and another's second step."""
+    task = dict(j_load_config(f"planning/{material}")["task_config"])
+    lo = np.asarray(task["action_lower_lim"], np.float32)
+    task.update(max_nobj=24, action_upper_lim=list(task["action_upper_lim"][
+        :3]) + [float(lo[3]) + 1])
+    hi = np.asarray(task["action_upper_lim"], np.float32)
+    small = _models(JConfig(n_his=int(task["n_his"]), nf=16, pstep=1), 2)
+    rng = np.random.RandomState(5)
+    mask = _partial_mask(kind, 5, 24, rng)
+    # JAX takes a per-sample mask with per-sample states
+    state = rng.rand(*mask.shape[:-1], 24, 3).astype(np.float32)
+    acts = (rng.rand(5, 2, 4) * (hi - lo) + lo).astype(np.float32)
+    acts[1, 0, 3] = 0.5
+    acts[3, 1, 3] = 0.0
+    j, t = _rollouts(small, task, state, mask, acts, np.array([0.5]))
+    seqs = _np(t["state_seqs"])
+    assert seqs.shape == (5, 2, 24, 3)
+    _close(t["state_seqs"], j["state_seqs"])
+    out = ~mask.reshape(-1, 24).any(0)
+    np.testing.assert_array_equal(seqs[1, 0][out],
+                                  (state[1] if state.ndim == 3 else state)[out])
+    assert not seqs[0, :, out].any() and not seqs[3, :, out].any()
+
+
+def test_compacted_rollout_gradient_matches_jax(small):
+    """The GD path through a rollout with rows left out: the gradient of
+    the states' sum in the actions against jax.grad."""
+    jmodel, jparams, model, params = small
+    task = _task(action_upper_lim=[0.0, 4.5, 3.14, 3])
+    rng = np.random.RandomState(6)
+    state = (rng.rand(30, 3) * 0.6).astype(np.float32)
+    mask = np.arange(30) % 3 != 0
+    acts = rng.uniform(-0.2, 0.8, (4, 1, 4)).astype(np.float32)
+    acts[..., 3] = [[2.5], [3.0], [2.0], [2.9]]
+    jroll = jf.make_batched_dynamics(jmodel, task)
+    g_j = jax.jit(jax.grad(lambda a: jnp.sum(jroll(
+        jparams, _j(state), _j(mask), a, jnp.array([0.5]))["state_seqs"]
+        ** 2)))(_j(acts))
+    a = _t(acts).requires_grad_(True)
+    out = tf.make_batched_dynamics(model, task)(
+        params, _t(state), _t(mask), a, _t([0.5]))
+    (out["state_seqs"] ** 2).sum().backward()
+    assert float(a.grad.abs().max()) > 1e-3
+    _close(a.grad, g_j)
+
+
+class _WidthModel(torch.nn.Module):
+    """Records the node rows of every forward it is given; moves nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.widths = []
+
+    def forward(self, hist, attrs, recv, send, valid, p_instance, physics,
+                action=None):
+        self.widths.append(hist.shape[2])
+        return hist[:, -1, :p_instance.shape[1]], None
+
+
+@pytest.mark.parametrize("material", ["rope", "granular"])
+def test_rollout_runs_on_the_rows_the_population_holds(material):
+    """The model gets k + P node rows where the mask holds k of nobj rows
+    (the union of per-sample masks), and nobj + P under a full mask."""
+    task = dict(t_load_config(f"planning/{material}")["task_config"])
+    task.update(n_sample_chunk=2, action_upper_lim=list(
+        task["action_upper_lim"][:3]) + [2])
+    n_pusher = len(task["pusher_points"])
+    rng = np.random.RandomState(7)
+    state = _t(rng.rand(24, 3).astype(np.float32))
+    acts = _t(np.tile(np.array([[[-1.0, 0.5, 0.3, 2.0]]], np.float32),
+                      (3, 1, 1)))
+    per_sample = rng.rand(3, 24) < 0.6
+    per_sample[:, :8] = False
+    for mask, k in ((np.arange(24) % 3 != 2, 16),
+                    (per_sample, int(per_sample.any(0).sum())),
+                    (np.ones(24, bool), 24)):
+        fake = _WidthModel()
+        tf.make_batched_dynamics(fake, task)(
+            {}, state, _t(mask), acts, _t([0.5]))
+        assert fake.widths == [k + n_pusher] * 4  # 2 chunks x 2 repeats
 
 
 # ------------------------------------------------------- rope checkpoint

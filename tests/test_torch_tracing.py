@@ -165,7 +165,8 @@ def test_off_records_nothing_and_changes_nothing():
 def test_planning_spans_and_counters(monkeypatch):
     """Span counts follow iterations x chunks x look-ahead steps x
     repeats; the counters equal the repeats decoded from the scored
-    actions and the edges of direct calls of the slotted edge builder."""
+    actions, the edges of direct calls of the slotted edge builder and the
+    node rows the mask holds."""
     built = Counter()
     build = fd.build_edges_slotted_batch
 
@@ -213,6 +214,11 @@ def test_planning_spans_and_counters(monkeypatch):
     assert c["rollout.valid_edges"] == built["valid"] > 0
     assert c["rollout.edge_slots"] == built["slots"] > built["valid"]
     assert c["rollout.valid_nodes"] == built["nodes"]
+    # the rollout runs the 16 object rows the mask holds of 20, and the
+    # pusher point, a chunk and look-ahead step
+    rows = (N_ITER * padded + 1) * N_LOOK
+    assert c["rollout.node_slots_run"] == rows * (16 + 1)
+    assert c["rollout.node_slots_full"] == rows * (20 + 1)
 
 
 def test_train_spans():
