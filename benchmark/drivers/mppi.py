@@ -1,14 +1,15 @@
 """The MPPI planning driver: the port's Planner, as plan.py composes it for
 one action, planning a push of the configuration's object.
 
-Set-up: the model with the run's seeded weights, the perceived state and
-the target, the population rollout (planning.forward_dynamics), the
-evaluator composed from planning.costs (chunked_cost with the task's error,
-penalty and workspace), and a Planner drawing its randoms from the
-harness's own generator through `noise_fn`. The warm-up plans once with a
-population of one chunk. The window calls trajectory_optimization back to
-back from the same state, each call `n_update_iter` MPPI iterations over
-the published population, and closes at the end of the call in progress.
+Set-up: the model with the run's seeded weights, the perceived state (the
+configuration's own scene, the same in every run) and the target, the
+population rollout (planning.forward_dynamics), the evaluator composed
+from planning.costs (chunked_cost with the task's error, penalty and
+workspace), and a Planner drawing its randoms from the harness's own
+generator through `noise_fn`. The warm-up plans once with a population of
+one chunk. The window calls trajectory_optimization back to back from the
+same state, each call `n_update_iter` MPPI iterations over the published
+population, and closes at the end of the call in progress.
 
 The check, once the window has closed, covers every call of the window:
 each iteration's whole population against the reference's sampling from
@@ -16,11 +17,17 @@ the same draws (the incumbent from the reference's MPPI update of the
 program's rewards), the returned action against the reference's choice
 over the program's rewards, and for a sample of rows drawn from the seed
 (the longest pushes among them) the predicted states and the rewards
-against the reference's own rollout and reward of the same pushes.
+against the reference's own rollout and reward of the same pushes, and
+the rewards against the reference's reward of the program's own states.
+The rollout is judged by the states and the cost by the last: the reward
+gap itself is printed, not compared, since the penalties' exp(-100 d)
+terms scale a state's rounding by up to 500 in rows at the workspace's
+side.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as np
@@ -65,8 +72,12 @@ class Run:
 
         self.weights = inputs.weights(shapes, cfg["assumed"]["weights"], seed,
                                       device)
-        self.state, self.mask = inputs.planning_state(
-            seed, cfg["assumed"]["object"], tc, device)
+        scene = cfg["assumed"]["object"]
+        self.state, self.mask = inputs.planning_state(scene, tc, device)
+        self.scene = {"scene_seed": scene["scene_seed"],
+                      "perceived": int(self.mask.sum()),
+                      "state_sha256": hashlib.sha256(
+                          self.state.cpu().numpy().tobytes()).hexdigest()}
         self.target = inputs.planning_target(
             seed, self.state, self.mask, tc, cfg["assumed"].get("target", {}),
             device)
@@ -220,7 +231,7 @@ class Run:
         rec = self.record
         g = inputs.generator(self.seed, "rows", self.dev)
         act_gap = best_gap = 0.0
-        state_gaps, reward_gaps = [], []
+        state_gaps, reward_gaps, cost_gaps = [], [], []
         counts = {"forwards": 0, "nodes": 0, "edges": 0}
         forwards_needed = 0
         self.worst = (0.0, None)  # the widest row gap and its edge margin
@@ -244,10 +255,12 @@ class Run:
                                                  self.target)
                 longest, rest = self._rows(g, reps)
                 for rows, n in ((longest, None), (rest, counts)):
-                    sg, rg = self._rollout_gaps(task, a, seqs, rewards, rows,
-                                                largest, n, stand_in)
+                    sg, rg, cg = self._rollout_gaps(task, a, seqs, rewards,
+                                                    rows, largest, n,
+                                                    stand_in)
                     state_gaps.append(sg)
                     reward_gaps.append(rg)
+                    cost_gaps.append(cg)
             best = ref_plan.best_action(ref_acts, [p[2] for p in pops])
             answer = rec["answers"][c]
             best_gap = max(best_gap, float((answer - best).abs().max()))
@@ -255,6 +268,7 @@ class Run:
         self.counts = counts
         self.forwards_needed = forwards_needed
         out = {"act_gap": act_gap, "best_gap": best_gap,
+               "cost_gap": float(torch.cat(cost_gaps).max()),
                "widest_row_edge_margin": self.worst[1]}
         for name, gaps in (("state_gap", torch.cat(state_gaps)),
                            ("reward_gap", torch.cat(reward_gaps))):
@@ -274,9 +288,11 @@ class Run:
 
     def _rollout_gaps(self, task, acts, seqs, rewards, rows, largest, counts,
                       stand_in):
-        """Per-row widest state gap and reward gap of `rows`; `counts`
-        (when given) gathers the valid nodes and edges of their forwards."""
-        s_gaps, r_gaps = [], []
+        """Per-row widest state gap, reward gap and cost gap of `rows`
+        (the last: the program's reward against the reference's reward of
+        the program's own states); `counts` (when given) gathers the valid
+        nodes and edges of their forwards."""
+        s_gaps, r_gaps, c_gaps = [], [], []
         for i in range(0, rows.numel(), 256):
             r = rows[i:i + 256]
             ref = ref_plan.rollout(self.weights, task, self.state, self.mask,
@@ -284,14 +300,14 @@ class Run:
             parts = ref_plan.reward_parts(task, ref, acts[r], self.state,
                                           self.mask, self.target)
             ref_r = ref_plan.reward(parts, largest)
-            got_s, got_r = seqs[r], rewards[r]
-            if stand_in is not None:
-                got_s = stand_in(task, acts[r])
-                got_r = ref_plan.reward(ref_plan.reward_parts(
-                    task, got_s, acts[r], self.state, self.mask, self.target),
-                    largest)
+            got_s = seqs[r] if stand_in is None else stand_in(task, acts[r])
+            cost = ref_plan.reward(ref_plan.reward_parts(
+                task, got_s, acts[r], self.state, self.mask, self.target),
+                largest)
+            got_r = rewards[r] if stand_in is None else cost
             s_gaps.append((got_s - ref).abs().amax(dim=(1, 2, 3)))
             r_gaps.append((got_r - ref_r).abs())
+            c_gaps.append((got_r - cost).abs())
         s_gaps, r_gaps = torch.cat(s_gaps), torch.cat(r_gaps)
         worst = int(torch.argmax(s_gaps))
         if float(s_gaps[worst]) > self.worst[0]:
@@ -299,7 +315,7 @@ class Run:
             ref_plan.rollout(self.weights, task, self.state, self.mask,
                              acts[rows[worst:worst + 1]], self.phys, margins=m)
             self.worst = (float(s_gaps[worst]), float(m[0]))
-        return s_gaps, r_gaps
+        return s_gaps, r_gaps, torch.cat(c_gaps)
 
     def control(self, precision: str):
         """The stand-in for the control: the reference's rollout at

@@ -1,11 +1,11 @@
-"""Every input of a run, made from its seed on the run's device: the
-model's weights, the object's point cloud as the planner perceives it, the
-planning target, and the training episodes. Nothing here reads the program
+"""Every input of a run: the model's weights, the planning target and the
+training episodes, made from the run's seed on the run's device, and the
+object's point cloud as the planner perceives it, made from the
+configuration's own scene seed on the CPU. Nothing here reads the program
 under test; the same tensors go to the program and to the reference.
 
-Each kind of input draws from its own torch.Generator on the device,
-seeded from the run's seed and a fixed tag, so that adding draws to one
-kind moves no other.
+Each kind of input draws from its own torch.Generator, seeded from its
+seed and a fixed tag, so that adding draws to one kind moves no other.
 """
 
 from __future__ import annotations
@@ -125,20 +125,34 @@ def fps_radius(points, radius: float, max_n: int, start: int):
     return points[torch.tensor(picks, device=points.device)]
 
 
-def planning_state(seed: int, scene: dict, task: dict, device):
-    """(state (max_nobj, 3), mask (max_nobj,)): the object's cloud placed
-    on the table, down-sampled at the task's fps_radius as the perception
-    does, padded with zero rows."""
-    g = generator(seed, "object", device)
-    dense = place(g, cloud(g, int(scene["points"]), scene, device), scene)
-    start = int(torch.randint(dense.shape[0], (1,), generator=g,
-                              device=device))
+def perceived_points(scene_seed: int, scene: dict, task: dict):
+    """The points the perception keeps of scene `scene_seed`: the object's
+    cloud placed on the table and down-sampled at the task's fps_radius,
+    its cloud, placement and FPS start drawn on the CPU from the scene
+    seed, so that every device sees the same scene."""
+    cpu = torch.device("cpu")
+    g = generator(scene_seed, "object", cpu)
+    dense = place(g, cloud(g, int(scene["points"]), scene, cpu), scene)
+    start = int(torch.randint(dense.shape[0], (1,), generator=g))
+    return fps_radius(dense, float(task["fps_radius"]),
+                      int(task["max_nobj"]), start)
+
+
+def planning_state(scene: dict, task: dict, device):
+    """(state (max_nobj, 3), mask (max_nobj,)) on `device`: the points of
+    the configuration's own scene (scene['scene_seed']), padded with zero
+    rows. The run's seed does not enter: the rollout's work follows the
+    perceived count, which must be scene['perceived']."""
+    pts = perceived_points(int(scene["scene_seed"]), scene, task)
+    if pts.shape[0] != int(scene["perceived"]):
+        raise ValueError(f"scene seed {scene['scene_seed']} perceives "
+                         f"{pts.shape[0]} points; the configuration states "
+                         f"{scene['perceived']}")
     n_max = int(task["max_nobj"])
-    pts = fps_radius(dense, float(task["fps_radius"]), n_max, start)
-    state = torch.zeros((n_max, 3), device=device)
+    state = torch.zeros((n_max, 3))
     state[:pts.shape[0]] = pts
-    mask = torch.arange(n_max, device=device) < pts.shape[0]
-    return state, mask
+    mask = torch.arange(n_max) < pts.shape[0]
+    return state.to(device), mask.to(device)
 
 
 def planning_target(seed: int, state, mask, task: dict, spec: dict, device):

@@ -6,7 +6,8 @@ window, and print what its spans and counters give.
 
 The cell runs as benchmark/run.py runs it (run.run_cell: set-up, warm-up,
 window, check), with adaptigraph_torch.utils.profiling reset and enabled
-just before the window and exported just after it (harness/program.py).
+just before the window and exported just after it (harness/program.py),
+with --trace 0 too.
 The last line of standard output is run.py's result line with one more
 key, "program":
 
@@ -42,24 +43,10 @@ def traced(cell, seed: int, seconds: float, trace: bool, device, t0: float,
            sizes=None, say=print):
     """run.run_cell with the program's tracer on over the window: (the
     result line's dict with its "program" key, the tracer's export)."""
-    seen = {}
-    window = cell.driver.Run.window
-
-    def with_tracer(run, secs, profiled=None):
-        program.start()
-        try:
-            return window(run, secs, profiled)
-        finally:
-            seen["program"] = program.finish(profiled)
-            seen["run"] = run
-
-    cell.driver.Run.window = with_tracer
-    try:
-        out = runner.run_cell(cell, seed, seconds, trace, device, t0, sizes,
-                              say)
-    finally:
-        cell.driver.Run.window = window
-    prog, run = seen["program"], seen["run"]
+    keep = {}
+    out = runner.run_cell(cell, seed, seconds, trace, device, t0, sizes, say,
+                          tracer=True, keep=keep)
+    prog, run = keep["program"], keep["run"]
     by = defaultdict(list)
     for s in prog["spans"]:
         by[s["name"]].append(s)

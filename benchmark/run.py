@@ -4,15 +4,18 @@
                              --trace <0|1>
 
 One process a run: it loads the port, makes the cell's weights and inputs
-on the card from the seed, warms up the cell's own shapes (all of that is
-set-up), measures for --seconds (closing at the end of the planning call
-or train chunk in progress), then checks what the window produced against
-the plain reference under benchmark/reference/. With --trace 0 the last
-line of standard output carries the cell's end-to-end metrics; with
---trace 1 its per-layer metrics, read from harness-side spans and from
-torch.profiler over a steady segment of the window. Every number compared
-is printed beside its limit, as the last lines of standard error and under
-the last key of the result line.
+on the card from the seed (a planning cell's perceived scene from its
+configuration's own scene seed), warms up the cell's own shapes (all of
+that is set-up), measures for --seconds (closing at the end of the
+planning call or train chunk in progress), then checks what the window
+produced against the plain reference under benchmark/reference/. With
+--trace 0 the last line of standard output carries the cell's end-to-end
+metrics; with --trace 1 its per-layer metrics, read from harness-side
+spans, from the program's own spans and counters
+(adaptigraph_torch.utils.profiling, on over a traced run's window only)
+and from torch.profiler over a steady segment of the window. Every number
+compared is printed beside its limit, as the last lines of standard error
+and under the last key of the result line.
 
 Exits with a code other than 0, printing no result, when no card (or too
 few) is present, when ADAPTIGRAPH_GNN_AGG or ADAPTIGRAPH_GNN_DTYPE is set,
@@ -65,11 +68,16 @@ def power_limit() -> str:
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
-             t0: float, sizes=None, say=print) -> dict:
+             t0: float, sizes=None, say=print, tracer=None,
+             keep=None) -> dict:
     """Set up, warm up, measure and check one cell; the result line's
-    dict. t0 is the process's start on the perf_counter clock."""
+    dict. t0 is the process's start on the perf_counter clock. The
+    program's own tracer (harness/program.py) is on over the window when
+    `tracer` is true, by default in a traced run only; `keep`, a dict,
+    receives the run and the tracer's export."""
     import torch
 
+    from harness import program
     from harness.precision import matmul_precision
     from harness.trace import Profiled, Spans
 
@@ -89,13 +97,21 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     marks["warm_up"] = setup_s
     say(json.dumps({"setup_marks_s": marks,
                     "inputs_marks_s": getattr(run, "marks", {}),
+                    "scene": getattr(run, "scene", None),
                     "aggregation": run.mode[0],
                     "dtype": run.mode[1],
                     "allow_tf32": torch.backends.cuda.matmul.allow_tf32}),
         flush=True)
 
     profiled = Profiled() if trace else None
+    tracer = trace if tracer is None else tracer
+    if tracer:
+        program.start()
     w = run.window(seconds, profiled)
+    # before profiled.summary(), which drops the raw profile
+    prog = program.finish(profiled) if tracer else None
+    if keep is not None:
+        keep.update(run=run, program=prog)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     span_ms = spans.ms() if trace else {}
@@ -123,7 +139,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             metrics[m["name"]] = {"value": v, "unit": unit}
     else:
         t = SimpleNamespace(spans=span_ms, counters=dict(spans.counters),
-                            profile=profile, run=run, window=w)
+                            profile=profile, run=run, window=w,
+                            program=prog)
         for m in cell.per_layer:
             v = cells.reader(BENCH_DIR, m["name"])(t)
             if v is not None:

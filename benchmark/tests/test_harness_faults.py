@@ -2,7 +2,8 @@
 path broken underneath (the harness's own look for a card skipped), a
 rehearsal of each cell comes out not correct. The faults: a step that
 returns its state unchanged; half of the batch left out, the mean taken
-over the rest; an answer altered where it is produced. (The exchange
+over the rest; an answer altered where it is produced (for planning, the
+chosen push and, apart, the population's rewards). (The exchange
 between chips does not exist in these one-card cells.)"""
 
 from __future__ import annotations
@@ -54,6 +55,17 @@ def _altered_answer(monkeypatch):
     monkeypatch.setattr(p.Planner, "trajectory_optimization", altered)
 
 
+def _altered_reward(monkeypatch):
+    """The population's rewards scaled by 1.001 where they are produced."""
+    from adaptigraph_torch.planning import costs as c
+    assemble = c.assemble_reward
+
+    def scaled(parts):
+        out = assemble(parts)
+        return dict(out, reward_seqs=out["reward_seqs"] * 1.001)
+    monkeypatch.setattr(c, "assemble_reward", scaled)
+
+
 def _state_unchanged(monkeypatch):
     """Adam's update does nothing: the parameters and its moments stay."""
     import importlib
@@ -88,7 +100,7 @@ def _altered_loss(monkeypatch):
 
 
 MPPI = {"state unchanged": _frozen_model, "half batch": _half_batch_model,
-        "answer altered": _altered_answer}
+        "answer altered": _altered_answer, "reward altered": _altered_reward}
 TRAIN = {"state unchanged": _state_unchanged, "half batch": _half_batch_loss,
          "answer altered": _altered_loss}
 CASES = ([("rope.mppi", k) for k in MPPI]
